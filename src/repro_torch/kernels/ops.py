@@ -1,0 +1,77 @@
+"""Kernel dispatch: the one place that chooses kernel or plain version.
+
+  * a CUDA tensor        -> the hand-written CUDA kernel (it launches or
+                            raises; there is no fallback)
+  * a CPU tensor         -> the kernel's plain PyTorch version
+  * ``set_backend("ref")`` -> the plain version on any device, so
+                            ``chip_smoke.py`` can run the same step both
+                            ways on the card and compare
+
+Prefill attention keeps the reference's prompt-length domain: the JAX
+blockwise path and the Pallas kernel both require every sequence length
+S to satisfy ``S % min(512, S) == 0`` (``models/attention.py:108-109``,
+``kernels/flash_attention.py:95-97``), so a 700-token prompt is refused
+by both packages.  The CUDA kernel itself masks ragged tile edges.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+
+_BACKENDS = (None, "ref")
+_backend: str | None = None
+
+
+def set_backend(name: str | None):
+    """``None``: choose by the tensors' device.  ``"ref"``: force the
+    plain versions.  Process-wide, like the JAX package's switch."""
+    global _backend
+    if name not in _BACKENDS:
+        raise ValueError(f"backend {name!r} not in {_BACKENDS}")
+    _backend = name
+
+
+def _use_kernel(t) -> bool:
+    return t.is_cuda and _backend != "ref"
+
+
+def check_domain(*lengths: int):
+    """Raise ``ValueError`` for a length outside the prefill domain."""
+    for S in lengths:
+        if S % min(512, S):
+            raise ValueError(
+                f"sequence length {S} outside the reference's domain: a "
+                "length over 512 must be a multiple of 512")
+
+
+def attention_causal(q, k, v, *, softcap=0.0):
+    check_domain(q.shape[1], k.shape[1])
+    if _use_kernel(q):
+        return fa.flash_attention(q, k, v, causal=True, softcap=softcap)
+    return fa.plain(q, k, v, causal=True, softcap=softcap)
+
+
+def attention_windowed(q, k, v, *, window, softcap=0.0):
+    check_domain(q.shape[1], k.shape[1])
+    if _use_kernel(q):
+        return fa.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=softcap)
+    return fa.plain(q, k, v, causal=True, window=window, softcap=softcap)
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *,
+                           page_size, window=0, softcap=0.0):
+    """One-token attention over a paged KV pool.
+
+    q: (B,1,H,D); pools: (P, page_size, KV, D); page_table: (B, NP)
+    int32, -1 = unmapped; positions: (B,) int32.
+    """
+    if k_pool.shape[1] != page_size:
+        raise ValueError(f"pool page size {k_pool.shape[1]} != {page_size}")
+    if _use_kernel(q):
+        return da.paged_decode_attention(q, k_pool, v_pool, page_table,
+                                         positions, window=window,
+                                         softcap=softcap)
+    return da.plain(q, k_pool, v_pool, page_table, positions, window=window,
+                    softcap=softcap)

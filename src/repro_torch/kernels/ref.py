@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of the attention the kernels compute.
+
+Torch counterparts of ``repro/models/attention.py``'s oracles
+(``reference_attention``, ``decode_attend``, ``paged_decode_attend``),
+with the same numerics: scores in fp32 from the inputs' products,
+softmax in fp32, probabilities rounded to ``v.dtype`` before the P V
+product, fp32 accumulation, output in ``q.dtype``.  The CPU tests hold
+them against the JAX package, and ``chip_smoke.py`` holds the CUDA
+kernels against them on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softcap(x, cap: float):
+    return torch.tanh(x / cap) * cap if cap else x
+
+
+def _gqa_scores(q, k, softcap, scale):
+    """q: (B, Sq, KV, G, D), k: (B, Skv, KV, D) -> (B, KV, G, Sq, Skv)."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    return _softcap(s, softcap)
+
+
+def _gqa_out(p, v):
+    """p: (B, KV, G, Sq, Skv) fp32, v: (B, Skv, KV, D) -> (B,Sq,KV,G,D)."""
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(),
+                        v.float())
+
+
+def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        q_offset=0, kv_len=None):
+    """O(S^2)-memory attention.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D).  ``q_offset`` is the absolute
+    position of q[0]; ``kv_len`` (B,) is each row's valid prefix of kv.
+    """
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    s = _gqa_scores(q.reshape(B, Sq, KV, G, D), k, softcap, D ** -0.5)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    if kv_len is not None:
+        mask = mask[None] & (kpos[None] < kv_len[:, None, None])
+        mask = mask[:, None, None]
+    else:
+        mask = mask[None, None, None]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return _gqa_out(p, v).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attend(q, k_cache, v_cache, abs_pos, positions, *, window=0,
+                  softcap=0.0):
+    """Cached attention for decode-style queries.
+
+    q: (B, Sq, H, D); caches: (B, Sc, KV, D); abs_pos: (B, Sc) absolute
+    position held by each slot (-1 = empty); positions: (B,) or (B, Sq).
+    """
+    B, Sq, H, D = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    s = _gqa_scores(q.reshape(B, Sq, KV, G, D), k_cache, softcap,
+                    D ** -0.5)
+    if positions.ndim == 1:
+        positions = positions[:, None]
+    qpos = positions[:, :, None]                      # (B, Sq, 1)
+    ap = abs_pos[:, None, :]
+    valid = (ap >= 0) & (ap <= qpos)
+    if window:
+        valid &= ap > (qpos - window)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return _gqa_out(p, v_cache).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def paged_decode_attend(q, k_pool, v_pool, page_table, positions, *,
+                        page_size, window=0, softcap=0.0):
+    """Cached attention over a paged KV pool.
+
+    q: (B, 1, H, D); pools: (P, page_size, KV, D); page_table: (B, NP)
+    int32, -1 = unmapped; positions: (B,).  Gathers the row's pages into
+    a dense cache and delegates to ``decode_attend``.  A row with no
+    mapped page at or before its position outputs exactly 0.
+    """
+    B = q.shape[0]
+    NP = page_table.shape[1]
+    ps = page_size
+    safe = page_table.clamp(min=0).long()
+    k_cache = k_pool[safe].reshape(B, NP * ps, *k_pool.shape[2:])
+    v_cache = v_pool[safe].reshape(B, NP * ps, *v_pool.shape[2:])
+    idx = torch.arange(NP * ps, dtype=torch.int32, device=q.device)[None]
+    mapped = (page_table >= 0).repeat_interleave(ps, dim=1)
+    abs_pos = torch.where(mapped, idx, -1)
+    o = decode_attend(q, k_cache, v_cache, abs_pos, positions,
+                      window=window, softcap=softcap)
+    first = torch.arange(NP, device=q.device)[None] * ps
+    live = ((page_table >= 0) & (first <= positions[:, None])).any(dim=1)
+    return torch.where(live[:, None, None, None], o, torch.zeros_like(o))

@@ -6,3 +6,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 # smoke tests / benches see the single real CPU device; ONLY the dry-run
 # sets xla_force_host_platform_device_count (per its module header).
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; skips without one")

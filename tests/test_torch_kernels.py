@@ -1,0 +1,208 @@
+"""The port's attention kernels: plain versions against the JAX package.
+
+The same numpy-seeded inputs go through the JAX Pallas kernels (interpret
+mode, as tests/test_kernels.py and tests/test_paging.py run them on the
+CPU) or the JAX oracles, and through the port's plain PyTorch versions.
+Tolerances as in the reference tests: f32 2e-5 abs, bf16 2e-2 abs.  The
+CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_cuda_kernels.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention import \
+    paged_decode_attention as jax_paged  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention as jax_flash  # noqa: E402
+from repro.models import attention as jax_attn  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(dtype: str) -> float:
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def both(x: np.ndarray, dtype: str):
+    """One numpy array as a JAX array and a torch tensor of one dtype
+    (bf16 rounds the same way, to nearest even, in both)."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+def err(jax_out, torch_out) -> float:
+    a = np.asarray(jnp.asarray(jax_out, jnp.float32))
+    return float(np.abs(a - torch_out.float().numpy()).max())
+
+
+MODES = {"causal": dict(causal=True), "window": dict(causal=True, window=48),
+         "full": dict(causal=False),
+         "softcap": dict(causal=True, softcap=20.0)}
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (1, 128, 4, 4, 64),    # MHA
+    (2, 256, 8, 2, 64),    # GQA 4:1
+    (1, 128, 4, 1, 128),   # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_flash_plain_matches_pallas_interpret(B, S, H, KV, D, dtype, mode):
+    rng = np.random.default_rng(7)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(rng.standard_normal(s).astype(np.float32), dtype)
+        for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    kw = MODES[mode]
+    o_jax = jax_flash(qj, kj, vj, block_q=64, block_k=64, interpret=True,
+                      **kw)
+    o_port = fa.plain(qt, kt, vt, **kw)
+    assert o_port.dtype == DTYPES[dtype][1]
+    assert err(o_jax, o_port) < tol(dtype), mode
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_attention_q_offset_and_kv_len(dtype):
+    """Continuation prefill (q_offset != 0) and a per-row valid kv prefix,
+    against the JAX oracle (the Pallas kernel takes neither)."""
+    rng = np.random.default_rng(3)
+    B, Sq, Skv, H, KV, D = 2, 24, 64, 4, 2, 32
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(rng.standard_normal(s).astype(np.float32), dtype)
+        for s in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+    for kw in (dict(causal=True, q_offset=40),
+               dict(causal=True, window=16, q_offset=40),
+               dict(causal=False, softcap=20.0)):
+        o_jax = jax_attn.reference_attention(qj, kj, vj, **kw)
+        o_port = ref.reference_attention(qt, kt, vt, **kw)
+        assert err(o_jax, o_port) < tol(dtype), kw
+    kv_len = np.asarray([10, 64], np.int32)
+    o_jax = jax_attn.reference_attention(qj, kj, vj, causal=False,
+                                         kv_len=jnp.asarray(kv_len))
+    o_port = ref.reference_attention(qt, kt, vt, causal=False,
+                                     kv_len=torch.from_numpy(kv_len))
+    assert err(o_jax, o_port) < tol(dtype)
+
+
+@pytest.mark.parametrize("window", [0, 32])
+@pytest.mark.parametrize("per_query", [False, True])
+def test_decode_attend_matches_jax(window, per_query):
+    rng = np.random.default_rng(5)
+    B, Sq, Sc, H, KV, D = 2, 3, 96, 8, 2, 64
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(rng.standard_normal(s).astype(np.float32), "float32")
+        for s in ((B, Sq, H, D), (B, Sc, KV, D), (B, Sc, KV, D)))
+    ap = np.where(np.arange(Sc)[None] < np.asarray([[80], [50]]),
+                  np.arange(Sc)[None], -1).astype(np.int32)
+    pos = (np.asarray([[77, 78, 79], [40, 41, 42]], np.int32) if per_query
+           else np.asarray([79, 42], np.int32))
+    o_jax = jax_attn.decode_attend(qj, kj, vj, jnp.asarray(ap),
+                                   jnp.asarray(pos), window=window)
+    o_port = ref.decode_attend(qt, kt, vt, torch.from_numpy(ap),
+                               torch.from_numpy(pos), window=window)
+    assert err(o_jax, o_port) < 2e-5
+
+
+def _paged_case(rng, P, ps, NP, B, H, KV, D, dtype):
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(rng.standard_normal(s).astype(np.float32), dtype)
+        for s in ((B, 1, H, D), (P, ps, KV, D), (P, ps, KV, D)))
+    return qj, qt, kj, kt, vj, vt
+
+
+@pytest.mark.parametrize("P,ps,NP", [(8, 16, 4), (16, 8, 4), (6, 32, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["plain", "window", "softcap"])
+def test_paged_plain_matches_pallas_interpret(P, ps, NP, dtype, mode):
+    """Tables with unmapped (-1) entries, a partial row and a fully dead
+    row, whose output must be exactly 0 (tests/test_paging.py sweep)."""
+    rng = np.random.default_rng(11)
+    B, H, KV, D = 3, 4, 2, 64
+    qj, qt, kj, kt, vj, vt = _paged_case(rng, P, ps, NP, B, H, KV, D, dtype)
+    pt = np.full((B, NP), -1, np.int32)
+    pt[0, :NP] = rng.choice(P, NP, replace=False)
+    half = max(NP // 2, 1)
+    pt[1, :half] = rng.choice(P, half, replace=False)
+    pos = np.asarray([NP * ps - 1, min(ps + 1, half * ps - 1), 0], np.int32)
+    kw = {"window": dict(window=ps + ps // 2),
+          "softcap": dict(softcap=20.0)}.get(mode, {})
+    o_jax = jax_paged(qj, kj, vj, jnp.asarray(pt), jnp.asarray(pos),
+                      interpret=True, **kw)
+    o_port = da.plain(qt, kt, vt, torch.from_numpy(pt),
+                      torch.from_numpy(pos), **kw)
+    assert err(o_jax, o_port) < tol(dtype), mode
+    assert float(o_port[2].abs().max()) == 0.0      # dead row: exactly 0
+
+
+def test_paged_plain_randomized_tables():
+    P, ps, NP, B, H, KV, D = 12, 8, 3, 4, 2, 1, 64
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        qj, qt, kj, kt, vj, vt = _paged_case(rng, P, ps, NP, B, H, KV, D,
+                                             "float32")
+        pt = np.full((B, NP), -1, np.int32)
+        pos = np.zeros((B,), np.int32)
+        perm = list(rng.permutation(P))
+        for b in range(B):
+            n = int(rng.integers(1, NP + 1))
+            pt[b, :n] = [perm.pop() for _ in range(n)]
+            pos[b] = int(rng.integers(0, n * ps))
+        o_jax = jax_paged(qj, kj, vj, jnp.asarray(pt), jnp.asarray(pos),
+                          interpret=True)
+        o_port = da.plain(qt, kt, vt, torch.from_numpy(pt),
+                          torch.from_numpy(pos))
+        assert err(o_jax, o_port) < 2e-5, seed
+
+
+# -- dispatch ---------------------------------------------------------------
+
+def test_kernels_refuse_cpu_tensors():
+    """The kernel wrappers launch on CUDA tensors or raise; they never
+    fall back to the plain version themselves."""
+    q = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, k, k)
+    pool = torch.zeros((4, 16, 2, 64), dtype=torch.bfloat16)
+    pt = torch.zeros((1, 2), dtype=torch.int32)
+    pos = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.paged_decode_attention(q[:, :1], pool, pool, pt, pos)
+    assert fa.flash_attention.launches == 0
+    assert da.paged_decode_attention.launches == 0
+
+
+def test_ops_dispatch_cpu_to_plain_and_domain():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 32, 4, 16),
+                                             dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 32, 2, 16),
+                                             dtype=np.float32))
+    assert torch.equal(ops.attention_causal(q, k, k),
+                       fa.plain(q, k, k, causal=True))
+    assert torch.equal(ops.attention_windowed(q, k, k, window=8),
+                       fa.plain(q, k, k, window=8))
+    # the reference's prompt-length domain: > 512 must be a multiple
+    ops.check_domain(37, 511, 512, 1024, 1536)
+    for bad in (513, 700, 1000):
+        with pytest.raises(ValueError, match="domain"):
+            ops.check_domain(bad)
+    long_q = torch.zeros((1, 700, 4, 16))
+    with pytest.raises(ValueError, match="domain"):
+        ops.attention_causal(long_q, long_q[:, :, :2], long_q[:, :, :2])
+    with pytest.raises(ValueError):
+        ops.set_backend("pallas")
+    ops.set_backend("ref")               # forces the plain version
+    try:
+        assert torch.equal(ops.attention_causal(q, k, k),
+                           fa.plain(q, k, k, causal=True))
+    finally:
+        ops.set_backend(None)
