@@ -7,16 +7,33 @@ Phases, each printing its own lines (any failure exits non-zero before
 the result line):
 
   1. device  : the card's name and power limit (nvidia-smi)
-  2. build   : both CUDA kernels built from ``src/repro_torch/kernels/csrc``
+  2. build   : the four CUDA kernels built from
+               ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel
   3. kernels : each kernel against its plain PyTorch version on the card
-               in bf16 at the slice's shapes, with the tolerance, and its
-               time beside the plain version's, the library call's and the
-               bound
-  4. engine  : llama-1.5b at full width (bf16, random weights from a seed)
-               served by ``PagedEngine``: six requests, greedy and sampled
-               rows mixed, page-gated admission, conservation, the
-               kernels' launch counts on that run, and one decode step's
-               logits against the plain versions
+               at the slice's shapes, with the tolerance, and its time
+               beside the plain version's, the library call's and the bound
+  4. paths   : llama-1.5b at full width (bf16, random weights from seeds
+               0 and 1), each path driven with every launch count set to 0
+               just before it and read just after:
+               paged        ``PagedEngine``: six requests, page-gated
+                            admission, conservation, a profile, one decode
+                            step's logits against the plain versions
+               dense        ``Engine(slots=4, max_len=2048)``: four
+                            requests, decode_attention launched 24 times a
+                            step, a profile, logits against plain
+               spec_tier    a draft ``Engine`` (seed 1) proposing to a
+                            target ``Engine`` (seed 0) through
+                            ``step_probs`` / ``verify_slots_distribution``
+                            / ``rollback_slot``; spec_accept launched once
+                            a verify call
+               one_program  ``Engine(slots=1)``: the stepwise verify
+                            accepts 16/16 of its own greedy tokens
+               spec_generate ``speculative_generate`` against
+                            ``autoregressive_generate``
+               self_draft   the tier and ``speculative_generate`` again
+                            with the draft on the target's weights:
+                            acceptance 1.0, full-accept and short-tail
+                            rewinds
   5. the kernels' JSON line, the card line, and the result line
 """
 
@@ -37,6 +54,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 BF16_TOL = 2e-2            # kernel vs plain, per element, abs
+SPEC_TOL = 1e-6            # spec_accept's dist, kernel vs plain, abs
 # One decode step's logits, kernels vs plain versions, relative to the
 # largest logit.  The two paths differ by about one bf16 ulp per attention
 # output, and the random-init model amplifies that over 24 layers: the
@@ -80,6 +98,42 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def row_tol(ref) -> torch.Tensor:
+    """Per-row limit for a bf16 attention output (B, 1, H, D): 4 bf16
+    ulps of the row's largest |value|, and never above ``BF16_TOL``.  On
+    a long row the output averages many V rows and is small, so a fixed
+    2e-2 would hide an error such as a dropped slot there."""
+    top = ref.float().abs().flatten(1).amax(1).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return torch.clamp(4 * ulp, max=BF16_TOL)
+
+
+def row_err(out, ref, rows) -> tuple[float, float]:
+    """(max abs error, max error / per-row limit) over ``rows``."""
+    e = (out[rows].float() - ref[rows].float()).abs().flatten(1).amax(1)
+    return float(e.max()), float((e / row_tol(ref[rows])).max())
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper, by the name of its row in the JSON line."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import spec_verify as sv
+    return {"flash_attention": fa.flash_attention,
+            "paged_decode_attention": da.paged_decode_attention,
+            "decode_attention": da.decode_attention,
+            "spec_accept": sv.spec_accept}
+
+
+def zero_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +216,7 @@ def check_paged(da, gen) -> dict:
         pt_t = torch.from_numpy(pt).cuda()
         pos_t = torch.from_numpy(pos).cuda()
         o = da.paged_decode_attention(q, kp, vp, pt_t, pos_t, **kw)
-        ref = da.plain(q, kp, vp, pt_t, pos_t, **kw)
+        ref = da.paged_plain(q, kp, vp, pt_t, pos_t, **kw)
         torch.cuda.synchronize()
         err = max_err(o, ref)
         worst = max(worst, err)
@@ -184,7 +238,7 @@ def check_paged(da, gen) -> dict:
                                     for _ in range(B)]).astype(np.int32))
     pt = pt.cuda()
     err = max_err(da.paged_decode_attention(q, *pools[0], pt, pos),
-                  da.plain(q, *pools[0], pt, pos))
+                  da.paged_plain(q, *pools[0], pt, pos))
     worst = max(worst, err)
     if err > BF16_TOL:
         raise AssertionError(f"paged timed case: max_abs_err {err}")
@@ -195,7 +249,8 @@ def check_paged(da, gen) -> dict:
         da.paged_decode_attention(q, kp, vp, pt, pos)
 
     ms = time_ms(kern, iters=40)
-    plain_ms = time_ms(lambda: da.plain(q, *pools[0], pt, pos), iters=10)
+    plain_ms = time_ms(lambda: da.paged_plain(q, *pools[0], pt, pos),
+                       iters=10)
     live_pages = int(sum(int(p) // ps + 1 for p in pos.tolist()))
     kv_bytes = 2 * live_pages * ps * KV * D * 2
     nbytes = kv_bytes + 2 * B * H * D * 2 + pt.numel() * 4 + B * 4
@@ -210,6 +265,171 @@ def check_paged(da, gen) -> dict:
                 source="src/repro_torch/kernels/csrc/"
                        "paged_decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:180",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def _dense_case(B, Sc, KV, D, gen):
+    return (torch.randn((B, Sc, KV, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+
+
+def check_decode(da, gen) -> dict:
+    """Dense flash-decode at the slice's shape (B=4, Sc=2048, H=16, KV=8,
+    D=128, bf16): fill levels 37 / 512 / 2048 with rolled-back slots past
+    the position, a ring-buffered window, a softcap, and one empty row
+    (no valid slot), which must be exactly 0."""
+    B, H, KV, D, Sc = 4, 16, 8, 128, 2048
+    slot = np.arange(Sc)[None]
+    worst = 0.0
+    for name, kw in (("fill", {}), ("softcap", dict(softcap=50.0)),
+                     ("window", dict(window=256))):
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        if name == "window":
+            # local-layer ring buffer of 256 slots: slot s holds the
+            # latest position p <= pos with p % 256 == s
+            Sw, w = 256, kw["window"]
+            pos = np.asarray([700, 1000, 100, 37], np.int32)
+            p = pos[:, None] - ((pos[:, None] - slot[:, :Sw]) % Sw)
+            ap = np.where(p >= 0, p, -1).astype(np.int32)
+            ap[B - 1] = -1                        # the empty row
+            kc, vc = _dense_case(B, Sw, KV, D, gen)
+            assert w == Sw
+        else:
+            fill = np.asarray([37, 512, 2048, 0])
+            pos = np.maximum(fill - 1, 0).astype(np.int32)
+            pos[B - 1] = 100                      # empty row: no slot
+            # rows 0 and 1 keep 6 rolled-back slots past their position
+            held = np.minimum(fill + np.asarray([6, 6, 0, 0]), Sc)
+            ap = np.where(slot < held[:, None], slot, -1).astype(np.int32)
+            kc, vc = _dense_case(B, Sc, KV, D, gen)
+        ap_t = torch.from_numpy(ap).cuda()
+        pos_t = torch.from_numpy(pos).cuda()
+        o = da.decode_attention(q, kc, vc, ap_t, pos_t, **kw)
+        ref = da.plain(q, kc, vc, ap_t, pos_t, **kw)
+        torch.cuda.synchronize()
+        err, frac = row_err(o, ref, slice(0, B - 1))
+        worst = max(worst, err)
+        empty = float(o[B - 1].float().abs().max())
+        if not torch.isfinite(o).all() or frac > 1.0 or empty != 0.0:
+            raise AssertionError(f"decode {name}: max_abs_err {err} at "
+                                 f"{frac:.2f} x its row's limit (4 bf16 "
+                                 f"ulps of the row's max |ref|, at most "
+                                 f"{BF16_TOL}), empty row max {empty}")
+        log(f"decode_attention {name} {kw}: positions {pos.tolist()}, "
+            f"max_abs_err={err:.3e}, worst row at {frac:.2f} x its limit "
+            f"(4 bf16 ulps of the row's max |ref|, at most {BF16_TOL}), "
+            f"empty row exactly 0")
+
+    # the timed shape: 4 rows at the dense engine's mid-run positions,
+    # caches rotated so each call finds them cold in the 50 MB L2
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    caches = [tuple(_dense_case(B, Sc, KV, D, gen)) for _ in range(4)]
+    pos = torch.tensor([60, 530, 1050, 1560], dtype=torch.int32,
+                       device="cuda")
+    ap = torch.where(torch.arange(Sc, device="cuda")[None] <= pos[:, None],
+                     torch.arange(Sc, device="cuda", dtype=torch.int32)[None],
+                     -1).to(torch.int32)
+    err, frac = row_err(da.decode_attention(q, *caches[0], ap, pos),
+                        da.plain(q, *caches[0], ap, pos), slice(0, B))
+    worst = max(worst, err)
+    if frac > 1.0:
+        raise AssertionError(f"decode timed case: max_abs_err {err} at "
+                             f"{frac:.2f} x its row's limit")
+    it = iter(range(1 << 30))
+
+    def kern():
+        kc, vc = caches[next(it) % len(caches)]
+        da.decode_attention(q, kc, vc, ap, pos)
+
+    ms = time_ms(kern, iters=40)
+    plain_ms = time_ms(lambda: da.plain(q, *caches[0], ap, pos), iters=10)
+    # the library yardstick: one SDPA call with the validity mask, on
+    # (B, heads, S, D) copies made outside the timing
+    kt, vt = (c.transpose(1, 2).contiguous() for c in caches[0])
+    qt = q.transpose(1, 2).contiguous()
+    mask = (ap >= 0)[:, None, None, :]
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=40)
+    valid = sum(int(p) + 1 for p in pos.tolist())
+    kv_bytes = 2 * valid * KV * D * 2
+    nbytes = kv_bytes + valid * 4 + 2 * B * H * D * 2 + B * 4
+    flops = 4 * H * D * valid
+    bms, by = bound(flops, nbytes)
+    log(f"decode_attention timed B={B} Sc={Sc} positions {pos.tolist()}: "
+        f"max_abs_err={err:.3e} ({frac:.2f} x its row's limit), kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+        f"{kv_bytes / 1e6:.1f} MB of K+V), {nbytes / ms / 1e6:.1f} GB/s")
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:81",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def _spec_case(kind, g, V, gen):
+    """(tokens, q, p, u) on the card: ``random`` draws the drafts from q;
+    ``greedy`` is one-hot q and p agreeing on the first g // 2 tokens
+    (g = 1: full acceptance); ``q0`` puts q_tok = 0 at the first draft."""
+    if kind == "greedy":
+        t = torch.randint(0, V, (g + 1,), generator=gen, device="cuda")
+        d = t[:g].clone()
+        d[g // 2:] = (d[g // 2:] + 1) % V
+        if g == 1:
+            d[0] = t[0]
+        q = torch.nn.functional.one_hot(d, V).float()
+        p = torch.nn.functional.one_hot(t, V).float()
+        u = torch.rand((g,), generator=gen, device="cuda")
+        return d.to(torch.int32), q, p, u
+    q = torch.softmax(3 * torch.randn((g, V), generator=gen,
+                                      device="cuda"), -1)
+    p = torch.softmax(3 * torch.randn((g + 1, V), generator=gen,
+                                      device="cuda"), -1)
+    d = torch.multinomial(q, 1, generator=gen)[:, 0]
+    if kind == "q0":
+        q[0, d[0]] = 0.0
+    u = torch.rand((g,), generator=gen, device="cuda")
+    return d.to(torch.int32), q.contiguous(), p.contiguous(), u
+
+
+def check_spec(sv, gen) -> dict:
+    """spec_accept against its plain version at V = 32768: n exactly,
+    dist within 1e-6 abs."""
+    V = 32768
+    worst = 0.0
+    for g in (1, 4, 8):
+        for kind in ("random", "greedy", "q0"):
+            d, q, p, u = _spec_case(kind, g, V, gen)
+            n, dist = sv.spec_accept(d, q, p, u)
+            n_ref, dist_ref = sv.plain(d, q, p, u)
+            torch.cuda.synchronize()
+            err = max_err(dist, dist_ref)
+            worst = max(worst, err)
+            if int(n) != int(n_ref) or err > SPEC_TOL:
+                raise AssertionError(f"spec_accept g={g} {kind}: n {int(n)} "
+                                     f"vs {int(n_ref)}, dist err {err}")
+            log(f"spec_accept g={g} {kind}: n={int(n)} (plain "
+                f"{int(n_ref)}), dist max_abs_err={err:.3e} (tol "
+                f"{SPEC_TOL})")
+    # the timed shape: the speculative tier's, g = 4 over the padded vocab
+    d, q, p, u = _spec_case("random", 4, V, gen)
+    ms = time_ms(lambda: sv.spec_accept(d, q, p, u), iters=100)
+    plain_ms = time_ms(lambda: sv.plain(d, q, p, u), iters=20)
+    n = int(sv.spec_accept(d, q, p, u)[0])
+    # what these inputs need: the 2g token probabilities (of the rows
+    # before the cut), the tokens and uniforms, row n of p (and of q
+    # when n < g) and dist written once
+    rows = 2 if n < 4 else 1
+    nbytes = 2 * 4 * 4 + 2 * 4 * 4 + rows * V * 4 + V * 4 + 4
+    flops = 4 * 4 + 3 * V
+    bms, by = bound(flops, nbytes)
+    log(f"spec_accept timed g=4 V={V} (n={n}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, {nbytes} bytes)")
+    return dict(name="spec_accept", route="cuda",
+                source="src/repro_torch/kernels/csrc/spec_verify.cu",
+                replaces="src/repro/kernels/spec_verify.py:53",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
 
@@ -235,6 +455,27 @@ def decode_logits(engine, paged):
     return logits[:, 0].float()
 
 
+def compare_logits(label: str, fn):
+    """``fn()``'s logits with the kernels against the plain versions on
+    the same state, under the ``LOGIT_REL_TOL`` rule."""
+    from repro_torch.kernels import ops
+    out_k = fn()
+    ops.set_backend("ref")
+    try:
+        out_r = fn()
+    finally:
+        ops.set_backend(None)
+    compared = max_err(out_k, out_r)
+    scale = float(out_r.abs().max())
+    agree = float((out_k.argmax(-1) == out_r.argmax(-1)).float().mean())
+    if not torch.isfinite(out_k).all() or compared > LOGIT_REL_TOL * scale:
+        raise AssertionError(f"{label}: decode logits kernel vs plain: "
+                             f"{compared} > {LOGIT_REL_TOL} x {scale}")
+    log(f"{label}: one decode step's logits, kernels vs plain versions: "
+        f"max_abs_err={compared:.3e}, max |logit| {scale:.3f} (tol "
+        f"{LOGIT_REL_TOL} x max |logit|), argmax agreement {agree:.2f}")
+
+
 def profiled(fn, label: str, per: int):
     """Run ``fn`` under torch.profiler; print wall time, device-busy time
     and the kernels that take most device time, per ``per`` units."""
@@ -257,20 +498,11 @@ def profiled(fn, label: str, per: int):
             f" ms x{e.count / per:.0f}  {e.key[:90]}")
 
 
-def run_engine(fa, da):
-    from repro_torch.configs import get
-    from repro_torch.kernels import ops
-    from repro_torch.models.init import init_params
+def run_engine(cfg, params):
+    """The paged phase: ``PagedEngine`` over flash and paged decode."""
     from repro_torch.serving import paged
     from repro_torch.serving.engine import Request
 
-    cfg = get("llama-1.5b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
-                         device="cuda")
-    torch.cuda.synchronize()
-    log(f"engine: {cfg.name} {cfg.param_count() / 1e9:.3f}B params bf16 "
-        f"initialised on the card in {time.perf_counter() - t0:.2f} s")
     # 160 pages (not the default 4 x 128): small enough that the sixth
     # request waits for pages while a row is free
     eng = paged.PagedEngine(cfg, params, page_size=16, rows=4,
@@ -289,8 +521,7 @@ def run_engine(fa, da):
     prefill_s, prefill_tok, step_s = 0.0, 0, []
     waited_for_pages = []
 
-    fa.flash_attention.launches = 0
-    da.paged_decode_attention.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     while pending or eng.requests:
         while pending:
@@ -312,8 +543,9 @@ def run_engine(fa, da):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         eng.check()
-    flash_n = fa.flash_attention.launches
-    paged_n = da.paged_decode_attention.launches
+    counts = read_counts()
+    flash_n = counts["flash_attention"]
+    paged_n = counts["paged_decode_attention"]
     n_steps = len(step_s)
 
     for r in reqs:
@@ -360,25 +592,299 @@ def run_engine(fa, da):
              "decode step (4 rows)", 4)
 
     # one decode step's logits, kernels vs plain versions, same state
-    out_k = decode_logits(eng, paged)
-    ops.set_backend("ref")
-    try:
-        out_r = decode_logits(eng, paged)
-    finally:
-        ops.set_backend(None)
-    compared = max_err(out_k, out_r)
-    scale = float(out_r.abs().max())
-    agree = float((out_k.argmax(-1) == out_r.argmax(-1)).float().mean())
-    if not torch.isfinite(out_k).all() or compared > LOGIT_REL_TOL * scale:
-        raise AssertionError(f"decode logits kernel vs plain: {compared} "
-                             f"> {LOGIT_REL_TOL} x {scale}")
-    log(f"engine: one decode step's logits, kernels vs plain versions: "
-        f"max_abs_err={compared:.3e}, max |logit| {scale:.3f} (tol "
-        f"{LOGIT_REL_TOL} x max |logit|), argmax agreement {agree:.2f}")
+    compare_logits("engine", lambda: decode_logits(eng, paged))
     for row in list(eng.requests):
         eng.retire(row)
     eng.check()
-    return flash_n, paged_n
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the dense Engine and speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+def _requests(cfg, lens, rng, prefix, max_new=(32, 32, 32, 32)):
+    """Greedy and ``temperature=0.7, top_k=16`` requests alternating."""
+    from repro_torch.serving.engine import Request
+    return [Request(f"{prefix}{i}", rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=m,
+                    temperature=0.7 if i % 2 else 0.0,
+                    top_k=16 if i % 2 else 0)
+            for i, (n, m) in enumerate(zip(lens, max_new))]
+
+
+def _check_outputs(cfg, reqs):
+    for r in reqs:
+        if len(r.output) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"{r.rid}: output {r.output}")
+
+
+def dense_logits(engine):
+    """One decode step's logits on a copy of the engine's dense caches
+    (the engine state is left untouched)."""
+    from repro_torch.models.model import forward
+    from repro_torch.serving.engine import _weave_write
+    s = engine.state
+    caches = [[{"attn": {k: a.clone() for k, a in layer["attn"].items()}}
+               for layer in grp] for grp in s.caches]
+    with torch.no_grad():
+        logits = forward(engine.params, {"tokens": s.last_token[:, None]},
+                         cfg=engine.cfg, mode="decode",
+                         caches=_weave_write(caches, s.active),
+                         positions=s.positions[:, None])
+    return logits[:, 0].float()
+
+
+def run_dense(cfg, params) -> dict:
+    """The dense phase: ``Engine(slots=4, max_len=2048)`` serves four
+    requests of 37, 512, 1024 and 1536 prompt tokens, 32 new each."""
+    from repro_torch.serving.engine import Engine
+    eng = Engine(cfg, params, slots=4, max_len=2048, seed=SEED,
+                 device="cuda")
+    lens = (37, 512, 1024, 1536)
+    reqs = _requests(cfg, lens, np.random.default_rng(SEED + 1), "d")
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for r in reqs:
+        if not eng.add_request(r):
+            raise AssertionError(f"{r.rid} refused with a slot free")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    step_s = []
+    while eng.requests:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    counts = read_counts()
+    _check_outputs(cfg, reqs)
+    n_steps, layers = len(step_s), cfg.num_layers
+    if (counts["decode_attention"] != layers * n_steps
+            or counts["flash_attention"] < layers * len(reqs)):
+        raise AssertionError(f"dense launch counts {counts}: need "
+                             f"decode_attention = {layers} x {n_steps} "
+                             f"steps, flash >= {layers} x {len(reqs)}")
+    med = sorted(step_s)[len(step_s) // 2]
+    log(f"dense: 4 requests x 32 tokens done in {n_steps} steps; launches "
+        f"flash_attention={counts['flash_attention']} ({layers} x "
+        f"{len(reqs)} prefills), decode_attention="
+        f"{counts['decode_attention']} ({layers} x {n_steps} steps)")
+    log(f"dense: prefill {sum(lens)} tokens in {prefill_s:.3f} s = "
+        f"{sum(lens) / prefill_s:.1f} tok/s; decode median "
+        f"{med * 1e3:.3f} ms/step over {n_steps} steps (host clock, "
+        f"synchronised)")
+
+    again = _requests(cfg, lens, np.random.default_rng(SEED + 1), "e")
+    for r in again:
+        if not eng.add_request(r):
+            raise AssertionError("re-admission failed")
+    profiled(lambda: [eng.step(auto_retire=False) for _ in range(4)],
+             "dense decode step (4 rows)", 4)
+    compare_logits("dense", lambda: dense_logits(eng))
+    return counts
+
+
+def run_spec_tier(cfg, target_params, draft_params, *, label="spec tier",
+                  max_new=(32, 32, 32, 32), gamma=4) -> tuple:
+    """Distribution-level speculative tier across two dense engines: the
+    draft proposes gamma tokens per round with ``step_probs``, the target
+    rules on them with ``verify_slots_distribution``, the draft rolls back
+    on a correction, or past the tail when a request needed fewer than
+    gamma (the round of ``repro/fleet/speculative.py``, without its
+    controller).  Draft and target positions must agree after every
+    round.  Returns the launch counts, the acceptance rate, and the
+    numbers of fully accepted windows and of draft rewinds past a short
+    tail."""
+    from repro_torch.serving.engine import Engine, Request
+    geo = dict(slots=4, max_len=2048, device="cuda")
+    target = Engine(cfg, target_params, seed=SEED, **geo)
+    draft = Engine(cfg, draft_params, seed=SEED + 1, **geo)
+    lens = (37, 512, 1024, 1536)
+    dreqs = _requests(cfg, lens, np.random.default_rng(SEED + 2), "s",
+                      max_new)
+    zero_counts()
+    pairs = []
+    for d in dreqs:
+        t = Request(d.rid, d.prompt, max_new_tokens=d.max_new_tokens,
+                    temperature=d.temperature, top_k=d.top_k)
+        if not (draft.add_request(d) and target.add_request(t)):
+            raise AssertionError(f"{d.rid} refused with a slot free")
+        pairs.append((d, t, []))
+    gen = torch.Generator().manual_seed(SEED)
+    rounds = verify_calls = draft_steps = target_steps = 0
+    proposed = accepted = full = short = 0
+    t0 = time.perf_counter()
+    live = pairs
+    while live:
+        need = {d.rid: min(gamma, d.max_new_tokens - len(c))
+                for d, _, c in live}
+        steps = max(need.values())
+        qrows = {d.rid: [] for d, _, _ in live}
+        for _ in range(steps):
+            _, probs = draft.step_probs(auto_retire=False)
+            draft_steps += 1
+            for d, _, _ in live:
+                qrows[d.rid].append(probs[d.slot])
+        tails = {t.slot: d.output[len(c):len(c) + need[d.rid]]
+                 for d, t, c in live}
+        qs = {t.slot: np.stack(qrows[d.rid][:need[d.rid]])
+              for d, t, _ in live}
+        res = target.verify_slots_distribution(tails, qs, rng=gen)
+        rounds += 1
+        verify_calls += len(tails)
+        target_steps += max(map(len, tails.values())) + 1
+        still = []
+        for d, t, c in live:
+            tail = tails[t.slot]
+            n_acc, corr = res[t.slot]
+            proposed += len(tail)
+            accepted += n_acc
+            full += corr is None
+            if corr is not None:
+                draft.rollback_slot(d.slot, steps, n_acc, corr)
+            elif steps > len(tail):
+                draft.rollback_slot(d.slot, steps - len(tail), 0, None)
+                short += 1
+            c.extend(tail[:n_acc] + ([corr] if corr is not None else []))
+            d.output[:] = list(c)
+            pd = int(draft.state.positions[d.slot])
+            pt = int(target.state.positions[t.slot])
+            if pd != pt:
+                raise AssertionError(f"{label} {d.rid}: draft at {pd}, "
+                                     f"target at {pt} after round {rounds}")
+            if len(c) >= d.max_new_tokens:
+                draft.retire(d.slot)
+                target.retire(t.slot)
+                continue
+            still.append((d, t, c))
+        live = still
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    _check_outputs(cfg, dreqs)
+    layers = cfg.num_layers
+    if (counts["spec_accept"] != verify_calls
+            or counts["decode_attention"]
+            != layers * (draft_steps + target_steps)):
+        raise AssertionError(
+            f"{label} launch counts {counts}: need spec_accept = "
+            f"{verify_calls} verify calls, decode_attention = {layers} x "
+            f"({draft_steps} draft + {target_steps} target steps)")
+    rate = accepted / max(proposed, 1)
+    log(f"{label}: 4 requests x {list(max_new)} committed tokens in "
+        f"{rounds} rounds (gamma {gamma}), {draft_steps} draft steps, "
+        f"{target_steps} target scoring steps, {wall:.3f} s; acceptance "
+        f"{accepted}/{proposed} = {rate:.4f}; {full} fully accepted "
+        f"windows, {short} draft rewinds past a short tail; draft and "
+        f"target positions agreed after every round")
+    log(f"{label}: launches spec_accept={counts['spec_accept']} (= "
+        f"{verify_calls} verify calls), decode_attention="
+        f"{counts['decode_attention']} ({layers} x "
+        f"{draft_steps + target_steps} steps), flash_attention="
+        f"{counts['flash_attention']} ({layers} x 8 prefills)")
+    return counts, rate, full, short
+
+
+def run_one_program(cfg, params) -> dict:
+    """The one-program contract on ``Engine(slots=1)``: the stepwise
+    verify accepts 16 of the engine geometry's own greedy tokens,
+    exactly; the wide verify's agreement is reported (knife-edge logits
+    may break differently in its wider shapes)."""
+    from repro_torch.serving.engine import Engine, Request
+    geo = dict(slots=1, max_len=2048, seed=SEED, device="cuda")
+    prompt = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, 200)
+    zero_counts()
+    pure = Engine(cfg, params, **geo)
+    r = Request("p", prompt, max_new_tokens=16)
+    pure.add_request(r)
+    for _ in range(16):
+        pure.step(auto_retire=False)
+    toks = list(r.output)
+    ver = Engine(cfg, params, **geo)
+    ver.add_request(Request("p", prompt, max_new_tokens=16))
+    res = ver.verify_slots_stepwise({0: toks})
+    if res != {0: (16, None)} or not ver.program_cache_hit:
+        raise AssertionError(f"stepwise verify of the engine's own greedy "
+                             f"tokens: {res} (program cache hit "
+                             f"{ver.program_cache_hit})")
+    wide = Engine(cfg, params, **geo)
+    wide.add_request(Request("p", prompt, max_new_tokens=16))
+    agreed = 0
+    for i in range(0, 16, 4):
+        n, corr = wide.verify_slots({0: toks[i:i + 4]}, width=4)[0]
+        agreed += n
+        if corr is not None:
+            break
+    counts = read_counts()
+    log(f"one program: stepwise verify accepted 16/16 of Engine(slots=1)'s "
+        f"own greedy tokens; wide verify agreed on {agreed}/16 before its "
+        f"first correction (not asserted: its shapes differ from decode's)")
+    return counts
+
+
+def run_spec_generate(cfg, target_params, draft_params, *,
+                      label="speculative_generate") -> tuple:
+    """``speculative_generate`` (200-token prompt, gamma 4, 32 new,
+    greedy) against ``autoregressive_generate`` on the target.  Returns
+    the launch counts and the acceptance rate."""
+    from repro_torch.core.speculation import (autoregressive_generate,
+                                              speculative_generate)
+    prompt = np.random.default_rng(SEED + 4).integers(0, cfg.vocab_size, 200)
+    zero_counts()
+    t = time.perf_counter()
+    out, st = speculative_generate(draft_params, cfg, target_params, cfg,
+                                   prompt, gamma=4, max_new=32,
+                                   temperature=0.0, seed=SEED)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t
+    counts = read_counts()
+    t = time.perf_counter()
+    ref, steps = autoregressive_generate(target_params, cfg, prompt,
+                                         max_new=32)
+    torch.cuda.synchronize()
+    ar_s = time.perf_counter() - t
+    if len(out) != 32 or not all(0 <= x < cfg.vocab_size for x in out):
+        raise AssertionError(f"{label} output {out}")
+    forwards = st.draft_steps + st.target_steps
+    if (counts["spec_accept"] != st.target_steps
+            or counts["flash_attention"] != cfg.num_layers * forwards):
+        raise AssertionError(f"{label} launch counts {counts}: need "
+                             f"spec_accept = {st.target_steps} rounds, "
+                             f"flash = {cfg.num_layers} x {forwards}")
+    agree = sum(a == b for a, b in zip(out, ref)) / 32
+    prefix = next((i for i, (a, b) in enumerate(zip(out, ref)) if a != b),
+                  32)
+    log(f"{label}: 32 tokens in {st.target_steps} rounds, acceptance "
+        f"{st.acceptance_rate:.4f}, {spec_s:.3f} s; agreement with "
+        f"autoregressive_generate {agree:.4f} (common prefix {prefix}), "
+        f"which took {steps} steps in {ar_s:.3f} s; launches spec_accept="
+        f"{counts['spec_accept']}, flash_attention="
+        f"{counts['flash_attention']}")
+    return counts, st.acceptance_rate
+
+
+def run_self_draft(cfg, params) -> dict:
+    """Both speculative paths with the draft on the target's own weights,
+    so every window is accepted whole: the tier's full-accept rewind
+    (``rollback_slot(slot, 1, 0, None)``) and the draft's rewind past a
+    short tail (two requests stop at 30 tokens), and
+    ``speculative_generate``'s rounds with n > 0.  Acceptance must be
+    1.0 on both.  Returns the launch counts of both paths, summed."""
+    counts, rate, full, short = run_spec_tier(
+        cfg, params, params, label="self-draft tier",
+        max_new=(32, 30, 32, 30))
+    if rate != 1.0 or short == 0 or full == 0:
+        raise AssertionError(f"self-draft tier: acceptance {rate}, {full} "
+                             f"fully accepted windows, {short} short-tail "
+                             f"rewinds; need 1.0 and both above 0")
+    gen_counts, gen_rate = run_spec_generate(
+        cfg, params, params, label="self-draft speculative_generate")
+    if gen_rate != 1.0:
+        raise AssertionError(f"self-draft speculative_generate: acceptance "
+                             f"{gen_rate}, need 1.0")
+    return {k: counts[k] + gen_counts[k] for k in counts}
 
 
 def main() -> int:
@@ -386,9 +892,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    from repro_torch.configs import get
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import spec_verify as sv
+    from repro_torch.models.init import init_params
 
     card = gpu_line()
     log(f"device: {card}; torch {torch.__version__} cuda "
@@ -397,16 +906,39 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"build: {len(build.KERNELS)} kernels in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+        f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process each)")
     for name, text in build.logs.items():
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"build: {name}: {ln.strip()}")
 
     gen = torch.Generator("cuda").manual_seed(SEED)
-    rows = [check_flash(fa, gen), check_paged(da, gen)]
-    flash_n, paged_n = run_engine(fa, da)
-    rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
+    rows = [check_flash(fa, gen), check_paged(da, gen),
+            check_decode(da, gen), check_spec(sv, gen)]
+
+    cfg = get("llama-1.5b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                         device="cuda")
+    draft = init_params(cfg, torch.Generator("cuda").manual_seed(SEED + 1),
+                        device="cuda")
+    torch.cuda.synchronize()
+    log(f"engine: {cfg.name} {cfg.param_count() / 1e9:.3f}B params bf16, "
+        f"target (seed {SEED}) and draft (seed {SEED + 1}) initialised on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    paths = {"paged": run_engine(cfg, params),
+             "dense": run_dense(cfg, params),
+             "spec_tier": run_spec_tier(cfg, params, draft)[0],
+             "one_program": run_one_program(cfg, params),
+             "spec_generate": run_spec_generate(cfg, params, draft)[0],
+             "self_draft": run_self_draft(cfg, params)}
+    for row in rows:
+        by_path = {p: c[row["name"]] for p, c in paths.items()
+                   if c[row["name"]]}
+        if not by_path:
+            raise AssertionError(f"{row['name']} never launched on a path")
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -7,6 +7,9 @@
                             ``chip_smoke.py`` can run the same step both
                             ways on the card and compare
 
+``spec_accept`` / ``spec_verify`` dispatch on the device of
+``target_probs``.
+
 Prefill attention keeps the reference's prompt-length domain: the JAX
 blockwise path and the Pallas kernel both require every sequence length
 S to satisfy ``S % min(512, S) == 0`` (``models/attention.py:108-109``,
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import spec_verify as sv
 
 _BACKENDS = (None, "ref")
 _backend: str | None = None
@@ -73,5 +77,37 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *,
         return da.paged_decode_attention(q, k_pool, v_pool, page_table,
                                          positions, window=window,
                                          softcap=softcap)
-    return da.plain(q, k_pool, v_pool, page_table, positions, window=window,
+    return da.paged_plain(q, k_pool, v_pool, page_table, positions,
+                          window=window, softcap=softcap)
+
+
+def decode_attention(q, k_cache, v_cache, abs_pos, positions, *, window=0,
+                     softcap=0.0):
+    """One-token attention over each row's own dense cache.
+
+    q: (B,1,H,D); caches: (B, Sc, KV, D); abs_pos: (B, Sc) int32, -1 =
+    empty; positions: (B,) int32.
+    """
+    if _use_kernel(q):
+        return da.decode_attention(q, k_cache, v_cache, abs_pos, positions,
+                                   window=window, softcap=softcap)
+    return da.plain(q, k_cache, v_cache, abs_pos, positions, window=window,
                     softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# speculative verification (dispatch on the device of ``target_probs``)
+# ---------------------------------------------------------------------------
+
+def spec_accept(draft_tokens, draft_probs, target_probs, u):
+    """The acceptance rule with the uniforms given: (n (), dist (V,))."""
+    if _use_kernel(target_probs):
+        return sv.spec_accept(draft_tokens, draft_probs, target_probs, u)
+    return sv.plain(draft_tokens, draft_probs, target_probs, u)
+
+
+def spec_verify(draft_tokens, draft_probs, target_probs, generator):
+    """Token-level acceptance with its draws from ``generator`` (a CPU
+    ``torch.Generator``): (n_accepted (), next_token ()), int32."""
+    return sv.verify(spec_accept, draft_tokens, draft_probs, target_probs,
+                     generator)

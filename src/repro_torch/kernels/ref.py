@@ -1,12 +1,13 @@
-"""Plain PyTorch versions of the attention the kernels compute.
+"""Plain PyTorch versions of what the kernels compute.
 
 Torch counterparts of ``repro/models/attention.py``'s oracles
-(``reference_attention``, ``decode_attend``, ``paged_decode_attend``),
-with the same numerics: scores in fp32 from the inputs' products,
-softmax in fp32, probabilities rounded to ``v.dtype`` before the P V
-product, fp32 accumulation, output in ``q.dtype``.  The CPU tests hold
-them against the JAX package, and ``chip_smoke.py`` holds the CUDA
-kernels against them on the card.
+(``reference_attention``, ``decode_attend``, ``paged_decode_attend``)
+and of the acceptance rule of ``repro/kernels/ref.py``
+(``spec_accept``).  The attention oracles keep the same numerics:
+scores in fp32 from the inputs' products, softmax in fp32, probabilities
+rounded to ``v.dtype`` before the P V product, fp32 accumulation, output
+in ``q.dtype``.  The CPU tests hold them against the JAX package, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -107,3 +108,28 @@ def paged_decode_attend(q, k_pool, v_pool, page_table, positions, *,
     first = torch.arange(NP, device=q.device)[None] * ps
     live = ((page_table >= 0) & (first <= positions[:, None])).any(dim=1)
     return torch.where(live[:, None, None, None], o, torch.zeros_like(o))
+
+
+def spec_accept(draft_tokens, draft_probs, target_probs, u):
+    """Speculative-decoding acceptance (Leviathan et al.) with the
+    uniforms passed in: the rule of ``spec_verify_ref``.
+
+    draft_tokens: (g,) int proposed tokens; draft_probs: (g, V) draft
+    distributions; target_probs: (g+1, V) target distributions at those
+    positions and the bonus one; u: (g,) uniforms in [0, 1).  Returns
+    (n (), int32: the accepted prefix length, dist (V,) float32: the
+    distribution the next token is drawn from).  Everything stays on the
+    inputs' device (no host sync)."""
+    g = draft_tokens.shape[0]
+    dp, tp = draft_probs.float(), target_probs.float()
+    idx = torch.arange(g, device=dp.device)
+    tok = draft_tokens.long()
+    ratio = tp[idx, tok] / dp[idx, tok].clamp(min=1e-30)
+    acc = (u.float() < ratio.clamp(max=1.0)).to(torch.int32)
+    n = torch.cumprod(acc, 0).sum().to(torch.int32)
+    p_n = tp[n]
+    q_n = torch.where(n < g, dp[n.clamp(max=g - 1)], torch.zeros_like(p_n))
+    resid = (p_n - q_n).clamp(min=0.0)
+    rs = resid.sum()
+    dist = torch.where(rs > 1e-9, resid / rs.clamp(min=1e-30), p_n)
+    return n, dist

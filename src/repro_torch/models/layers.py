@@ -1,5 +1,14 @@
 """Per-layer building blocks: norms, RoPE, the gated MLP, the attention
-module over shared KV page pools, and the layer dispatcher.
+module over dense per-row KV caches or shared KV page pools, and the
+layer dispatcher.
+
+Dense cache convention (one dict per attention layer):
+  k, v     : (B, S_c, KV, Dh)   S_c = window for "local", seq budget else
+  abs_pos  : (B, S_c) int32     absolute position held by each slot (-1 empty)
+  write    : (B,) bool, optional, woven in by the engine before a forward:
+             rows where it is False keep their cache untouched
+Local layers ring-buffer by ``abs_pos % window``; global layers index by
+absolute position.
 
 Paged cache convention (one dict per attention layer):
   k_pool, v_pool : (P, page_size, KV, Dh) pools shared by every batch row
@@ -8,8 +17,8 @@ Paged cache convention (one dict per attention layer):
 Logical position i of row b lives at offset ``i % page_size`` of page
 ``page_table[b, i // page_size]``.  RoPE is applied before caching.
 
-Unlike the JAX package, which returns new pools from ``.at[].set``, the
-port writes K/V into the pools in place (the pools are the engine's
+Unlike the JAX package, which returns new caches from ``.at[].set``, the
+port writes K/V into the caches and pools in place (they are the engine's
 largest tensors; copying them per layer per step would dominate decode).
 """
 
@@ -20,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import decode_attend
 from repro_torch.models.init import torch_dtype
 
 
@@ -55,6 +65,63 @@ def mlp_apply(p, x, cfg: ModelConfig):
 # attention module
 # ---------------------------------------------------------------------------
 
+def make_attn_cache(cfg: ModelConfig, lspec: LayerSpec, batch: int,
+                    max_len: int, dtype=None, device="cuda") -> dict:
+    """Dense per-row KV cache for one attention layer."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    S_c = min(lspec.window, max_len) if lspec.mixer == "local" else max_len
+    shape = (batch, S_c, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "abs_pos": torch.full((batch, S_c), -1, dtype=torch.int32,
+                                  device=device)}
+
+
+def _cache_slots(lspec: LayerSpec, S_c: int, positions):
+    """Map absolute positions (B,S) -> cache slot indices."""
+    if lspec.mixer == "local":
+        return positions % S_c
+    return positions.clamp(max=S_c - 1)
+
+
+def _write_cache(cache, lspec, k, v, positions):
+    """Scatter k/v (B,S,KV,Dh) at ``positions`` (B,S) into the dense
+    cache, in place.
+
+    Rows whose ``cache["write"]`` is False write back what their slots
+    already hold, so an inactive row's k, v and abs_pos stay untouched:
+    the JAX engine writes every row and then masks the inactive rows'
+    caches back to the old ones.  A ``torch.where`` per written slot,
+    not a boolean filter, so no layer waits on the host.
+    """
+    kc, vc, ap = cache["k"], cache["v"], cache["abs_pos"]
+    slots = _cache_slots(lspec, kc.shape[1], positions).long()
+    rows = torch.arange(kc.shape[0], device=kc.device)[:, None].expand_as(
+        slots)
+    positions = positions.to(torch.int32)
+    write = cache.get("write")
+    if write is not None:
+        w = write[:, None]
+        k = torch.where(w[..., None, None], k, kc[rows, slots])
+        v = torch.where(w[..., None, None], v, vc[rows, slots])
+        positions = torch.where(w, positions, ap[rows, slots])
+    kc[rows, slots] = k
+    vc[rows, slots] = v
+    ap[rows, slots] = positions
+
+
+def make_layer_cache(cfg: ModelConfig, lspec: LayerSpec, batch: int,
+                     max_len: int, device="cuda") -> dict:
+    """One layer's dense cache.  Attention mixers only: the recurrent
+    mixers' caches come with their model families (ROADMAP Queue 1)."""
+    if lspec.mixer not in ("attn", "local") or cfg.cross_attention:
+        raise NotImplementedError(
+            f"layer {lspec} (cross-attention {cfg.cross_attention}) has no "
+            "ported cache yet (ROADMAP Queue 1, other model families)")
+    return {"attn": make_attn_cache(cfg, lspec, batch, max_len,
+                                    device=device)}
+
+
 def make_paged_attn_cache(cfg: ModelConfig, pages: int, page_size: int,
                           dtype=None, device="cuda") -> dict:
     """Shared KV page pools for one attention layer (no batch axis)."""
@@ -88,18 +155,18 @@ def _write_pages(cache, k, v, positions):
 
 def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
                     positions, cache=None):
-    """Returns out (B,S,d); K/V go into ``cache``'s pools in place.
+    """Returns out (B,S,d); K/V go into ``cache`` in place.
 
     mode: "train" | "prefill" | "decode".  Prefill and train attend only
-    over the fed tokens (prefill never reads the pools), then prefill
-    scatters them into the row's pages; decode writes one token per row
-    and attends over the pools through the page table.
+    over the fed tokens (prefill never reads the cache), then prefill
+    writes them into the cache.  Decode on a paged cache writes one token
+    per row and attends over the pools through the page table.  Decode on
+    a dense cache writes every fed token first; one token per row (S = 1)
+    goes to the ``decode_attention`` kernel, and a speculative verify
+    window (S > 1, each query at its own position) to the plain
+    ``decode_attend``, as the JAX package leaves that window to XLA.
     """
     window = lspec.window if lspec.mixer == "local" else 0
-    if cache is not None and "k_pool" not in cache:
-        raise NotImplementedError(
-            "dense per-row KV caches belong to the dense Engine slice "
-            "(ROADMAP Queue 1); this port has the paged pools only")
 
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
     k = torch.einsum("btd,dhk->bthk", x, p["wk"])
@@ -110,13 +177,24 @@ def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if mode == "decode":
+    if mode == "decode" and "k_pool" in cache:
         _write_pages(cache, k, v, positions)
         o = kops.paged_decode_attention(
             q, cache["k_pool"], cache["v_pool"], cache["page_table"],
             positions[:, 0].to(torch.int32),
             page_size=cache["k_pool"].shape[1], window=window,
             softcap=cfg.attn_softcap)
+    elif mode == "decode":
+        _write_cache(cache, lspec, k, v, positions)
+        if q.shape[1] == 1:
+            o = kops.decode_attention(
+                q, cache["k"], cache["v"], cache["abs_pos"],
+                positions[:, 0].to(torch.int32), window=window,
+                softcap=cfg.attn_softcap)
+        else:
+            o = decode_attend(q, cache["k"], cache["v"], cache["abs_pos"],
+                              positions, window=window,
+                              softcap=cfg.attn_softcap)
     else:
         if window:
             o = kops.attention_windowed(q, k, v, window=window,
@@ -124,7 +202,10 @@ def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
         else:
             o = kops.attention_causal(q, k, v, softcap=cfg.attn_softcap)
         if mode == "prefill" and cache is not None:
-            _write_pages(cache, k, v, positions)
+            if "k_pool" in cache:
+                _write_pages(cache, k, v, positions)
+            else:
+                _write_cache(cache, lspec, k, v, positions)
     return torch.einsum("bthk,hkd->btd", o, p["wo"])
 
 

@@ -6,8 +6,9 @@ package, and a Python loop runs groups x repeats x layers where JAX uses
 ``lax.scan``.  One ``forward`` serves all three modes:
 
   train   : full sequence, no cache
-  prefill : full sequence, writes the row's KV pages
-  decode  : one token per row against the KV pages
+  prefill : full sequence, writes the row's KV cache or pages
+  decode  : one token per row (or a verify window, dense caches only)
+            against the KV cache or pages
 """
 
 from __future__ import annotations
@@ -16,8 +17,26 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.init import torch_dtype
-from repro_torch.models.layers import layer_apply, rmsnorm
+from repro_torch.device import resolve
+from repro_torch.models.layers import layer_apply, make_layer_cache, rmsnorm
 from repro_torch.models.schema import tree_map
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Full dense model cache: [group][layer_in_block], every leaf stacked
+    over repeats (a leading ``repeats`` dim, then batch), as in the JAX
+    package."""
+    dev = resolve(device)
+    groups = []
+    for block in cfg.blocks:
+        layers = []
+        for ls in block.layers:
+            one = make_layer_cache(cfg, ls, batch, max_len, device=dev)
+            layers.append(tree_map(
+                lambda a, n=block.repeats: a[None].repeat(
+                    (n,) + (1,) * a.ndim), one))
+        groups.append(layers)
+    return groups
 
 
 def _run_groups(params_blocks, x, *, cfg: ModelConfig, blocks, mode,
@@ -48,11 +67,12 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
             caches=None):
     """Returns logits (B, S, V_pad).
 
-    batch: {"tokens": (B, S)}.  ``caches`` is the woven per-layer tree
-    ([group][layer] {"attn": {k_pool, v_pool, page_table}}, every leaf
-    stacked over repeats); its pools are written in place, where the
-    JAX ``forward`` returns new caches (and an aux loss, always 0 for
-    the dense models ported so far).
+    batch: {"tokens": (B, S)}.  ``caches`` is the per-layer tree
+    ([group][layer] {"attn": {k, v, abs_pos[, write]}} dense, or
+    {"attn": {k_pool, v_pool, page_table}} paged, every leaf stacked
+    over repeats); it is written in place, where the JAX ``forward``
+    returns new caches (and an aux loss, always 0 for the dense models
+    ported so far).
     """
     if cfg.encoder_blocks or cfg.num_patches or cfg.cross_attention:
         raise NotImplementedError(

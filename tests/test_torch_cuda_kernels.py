@@ -7,7 +7,8 @@ port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
-Tolerances as in the reference kernel tests: bf16 2e-2 abs, f32 2e-5 abs.
+Tolerances as in the reference kernel tests: bf16 2e-2 abs, f32 2e-5 abs;
+``spec_accept``: n exactly, dist 1e-6 abs.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import spec_verify as sv  # noqa: E402
 
 MODES = {"causal": dict(causal=True), "window": dict(causal=True, window=48),
          "full": dict(causal=False),
@@ -68,7 +70,7 @@ def test_paged_kernel_matches_plain(cuda, dtype, mode):
     kw = {"window": dict(window=40),
           "softcap": dict(softcap=20.0)}.get(mode, {})
     o = da.paged_decode_attention(q, kp, vp, pt_t, pos_t, **kw)
-    o_ref = da.plain(q, kp, vp, pt_t, pos_t, **kw)
+    o_ref = da.paged_plain(q, kp, vp, pt_t, pos_t, **kw)
     t = 2e-2 if dtype == torch.bfloat16 else 2e-5
     assert float((o.float() - o_ref.float()).abs().max()) < t
     assert float(o[B - 1].abs().max()) == 0.0
@@ -90,7 +92,7 @@ def test_paged_kernel_other_geometries(cuda, D, H, KV, ps):
     pt_t = torch.from_numpy(pt.astype(np.int32)).to(cuda)
     pos_t = torch.from_numpy(pos).to(cuda)
     o = da.paged_decode_attention(q, kp, vp, pt_t, pos_t)
-    o_ref = da.plain(q, kp, vp, pt_t, pos_t)
+    o_ref = da.paged_plain(q, kp, vp, pt_t, pos_t)
     assert float((o.float() - o_ref.float()).abs().max()) < 2e-2
 
 
@@ -152,3 +154,168 @@ def test_tiny_engine_on_the_card_runs_both_kernels(cuda):
     assert eng.allocator.free_pages == eng.pages
     assert fa.flash_attention.launches - f0 == cfg.num_layers * 3
     assert da.paged_decode_attention.launches - d0 == cfg.num_layers * steps
+
+
+def _dense(cuda, B, Sc, KV, D, dtype, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    return (torch.randn((B, Sc, KV, D), generator=gen, device=cuda,
+                        dtype=dtype) for _ in range(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fill", "window", "softcap"])
+@pytest.mark.parametrize("D,H,KV", [(128, 16, 8), (64, 8, 1)])
+def test_dense_decode_kernel_matches_plain(cuda, dtype, mode, D, H, KV):
+    """Fill levels with rolled-back slots past the position, a ring
+    buffer, a softcap; row 3 has no valid slot and must be exactly 0."""
+    B, Sc = 4, 256
+    slot = np.arange(Sc)[None]
+    if mode == "window":
+        W = 64
+        pos = np.asarray([300, 63, 10, 5], np.int32)
+        p = pos[:, None] - ((pos[:, None] - slot[:, :W]) % W)
+        ap = np.where(p >= 0, p, -1).astype(np.int32)
+        kw, Sc = dict(window=W), W
+    else:
+        fill = np.asarray([1, 37, 256, 0])
+        held = np.minimum(fill + 5, Sc)
+        held[3] = 0
+        ap = np.where(slot < held[:, None], slot, -1).astype(np.int32)
+        pos = np.asarray([0, 36, 255, 9], np.int32)
+        kw = dict(softcap=20.0) if mode == "softcap" else {}
+    ap[3] = -1
+    kc, vc = _dense(cuda, B, Sc, KV, D, dtype, D + Sc)
+    q = torch.randn((B, 1, H, D), device=cuda, dtype=dtype)
+    ap_t, pos_t = (torch.from_numpy(a).to(cuda) for a in (ap, pos))
+    o = da.decode_attention(q, kc, vc, ap_t, pos_t, **kw)
+    o_ref = da.plain(q, kc, vc, ap_t, pos_t, **kw)
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert float((o[:3].float() - o_ref[:3].float()).abs().max()) < t
+    assert float(o[3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_dense_decode_refusals_and_dispatch(cuda):
+    B, Sc, KV, D = 2, 64, 2, 64
+    kc, vc = _dense(cuda, B, Sc, KV, D, torch.bfloat16, 0)
+    q = torch.randn((B, 1, 8, D), device=cuda, dtype=torch.bfloat16)
+    ap = torch.arange(Sc, device=cuda, dtype=torch.int32)[None].repeat(B, 1)
+    pos = torch.tensor([10, 63], device=cuda, dtype=torch.int32)
+    n = da.decode_attention.launches
+    ops.decode_attention(q, kc, vc, ap, pos)
+    assert da.decode_attention.launches == n + 1      # CUDA -> kernel
+    ops.set_backend("ref")
+    try:
+        ops.decode_attention(q, kc, vc, ap, pos)
+    finally:
+        ops.set_backend(None)
+    assert da.decode_attention.launches == n + 1      # "ref" -> plain
+    with pytest.raises(ValueError, match="dtypes"):
+        da.decode_attention(q.half(), kc.half(), vc.half(), ap, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, kc.transpose(1, 2).contiguous().transpose(
+            1, 2), vc, ap, pos)
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention(q, kc, vc, ap.long(), pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(q, kc, vc, ap.cpu(), pos)
+    with pytest.raises(ValueError, match="shapes"):
+        da.decode_attention(q.repeat(1, 2, 1, 1), kc, vc, ap, pos)
+    with pytest.raises(ValueError, match="head dim"):
+        da.decode_attention(q[..., :32].contiguous(),
+                            kc[..., :32].contiguous(),
+                            vc[..., :32].contiguous(), ap, pos)
+    assert da.decode_attention.launches == n + 1
+
+
+def _spec_inputs(cuda, g, V, seed, kind="random"):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    q = torch.softmax(2 * torch.randn((g, V), generator=gen, device=cuda), -1)
+    p = torch.softmax(2 * torch.randn((g + 1, V), generator=gen,
+                                      device=cuda), -1)
+    d = torch.multinomial(q, 1, generator=gen)[:, 0]
+    if kind == "greedy":
+        t = torch.randint(0, V, (g + 1,), generator=gen, device=cuda)
+        d = t[:g].clone()
+        d[-1] = (d[-1] + 1) % V                    # last draft rejected
+        q = torch.nn.functional.one_hot(d, V).float()
+        p = torch.nn.functional.one_hot(t, V).float()
+    elif kind == "q0":
+        q[0, d[0]] = 0.0
+    u = torch.rand((g,), generator=gen, device=cuda)
+    return d.to(torch.int32), q.contiguous(), p.contiguous(), u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("V", [32, 512, 32768])
+@pytest.mark.parametrize("kind", ["random", "greedy", "q0"])
+def test_spec_accept_kernel_matches_plain(cuda, g, V, kind):
+    for seed in range(3):
+        args = _spec_inputs(cuda, g, V, seed, kind)
+        n, dist = sv.spec_accept(*args)
+        n_ref, dist_ref = sv.plain(*args)
+        assert int(n) == int(n_ref)
+        assert float((dist - dist_ref).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_spec_verify_refusals_dispatch_and_draws(cuda):
+    d, q, p, u = _spec_inputs(cuda, 4, 512, 0)
+    n0 = sv.spec_accept.launches
+    a = ops.spec_verify(d, q, p, torch.Generator().manual_seed(3))
+    assert sv.spec_accept.launches == n0 + 1          # CUDA -> kernel
+    ops.set_backend("ref")
+    try:
+        b = ops.spec_verify(d, q, p, torch.Generator().manual_seed(3))
+    finally:
+        ops.set_backend(None)
+    assert sv.spec_accept.launches == n0 + 1          # "ref" -> plain
+    assert (int(a[0]), int(a[1])) == (int(b[0]), int(b[1]))
+    with pytest.raises(ValueError, match="int32"):
+        sv.spec_accept(d.long(), q, p, u)
+    with pytest.raises(ValueError, match="float32"):
+        sv.spec_accept(d, q.half(), p, u)
+    with pytest.raises(ValueError, match="shapes"):
+        sv.spec_accept(d, q, p[:4], u)
+    with pytest.raises(ValueError, match="contiguous"):
+        sv.spec_accept(d, q.t().contiguous().t(), p, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        sv.spec_accept(d, q, p, u.cpu())
+    assert sv.spec_accept.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_tiny_dense_engine_on_the_card_runs_the_kernels(cuda):
+    """A narrow llama (head dim 64) on the dense Engine: every prefill,
+    decode step and distribution verify goes through the kernels."""
+    from repro_torch.configs import get
+    from repro_torch.configs.tiny import make_tiny
+    from repro_torch.models.init import init_params
+    from repro_torch.serving.engine import Engine, Request
+    cfg = make_tiny(get("llama-1.5b"), d_model=256)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    eng = Engine(cfg, params, slots=2, max_len=128, device=cuda)
+    f0, d0 = fa.flash_attention.launches, da.decode_attention.launches
+    reqs = [Request(f"r{i}", np.arange(2, 30 + 7 * i) % 500,
+                    max_new_tokens=6, temperature=0.8 * i)
+            for i in range(2)]
+    for r in reqs:
+        assert eng.add_request(r)
+    steps = 0
+    while eng.requests:
+        eng.step()
+        steps += 1
+    assert all(len(r.output) == 6 for r in reqs)
+    assert fa.flash_attention.launches - f0 == cfg.num_layers * 2
+    assert da.decode_attention.launches - d0 == cfg.num_layers * steps
+    r = Request("v", np.arange(2, 40) % 500, max_new_tokens=8)
+    assert eng.add_request(r)
+    s0 = sv.spec_accept.launches
+    q = np.eye(cfg.padded_vocab, dtype=np.float32)[[5, 6, 7]]
+    res = eng.verify_slots_distribution({r.slot: [5, 6, 7]}, {r.slot: q},
+                                        rng=torch.Generator().manual_seed(0))
+    assert sv.spec_accept.launches == s0 + 1
+    n_acc, tok = res[r.slot]
+    assert 0 <= n_acc <= 3 and (tok is None) == (n_acc == 3)

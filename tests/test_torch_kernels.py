@@ -1,4 +1,4 @@
-"""The port's attention kernels: plain versions against the JAX package.
+"""The port's kernels: plain versions against the JAX package.
 
 The same numpy-seeded inputs go through the JAX Pallas kernels (interpret
 mode, as tests/test_kernels.py and tests/test_paging.py run them on the
@@ -16,13 +16,17 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.decode_attention import \
+    decode_attention as jax_decode  # noqa: E402
+from repro.kernels.decode_attention import \
     paged_decode_attention as jax_paged  # noqa: E402
 from repro.kernels.flash_attention import \
     flash_attention as jax_flash  # noqa: E402
+from repro.kernels.spec_verify import spec_accept as jax_accept  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import spec_verify as sv  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -111,6 +115,115 @@ def test_decode_attend_matches_jax(window, per_query):
     assert err(o_jax, o_port) < 2e-5
 
 
+def _dense_case(mode, rng, dtype):
+    """A dense decode case: (q, k, v, abs_pos, positions, kw) as (jax,
+    torch) pairs, every row holding at least one valid slot.
+
+    ``fill``: rows filled to 1, 37 and all 128 slots, with rolled-back
+    slots past the position; ``window``: a 32-slot ring buffer holding
+    the last 32 positions (and one short row); ``softcap``: ``fill`` with
+    a softcap."""
+    B, H, KV, D = 3, 8, 2, 64
+    slot = np.arange(128)[None]
+    if mode == "window":
+        Sc, kw = 32, dict(window=32)
+        pos = np.asarray([100, 31, 9], np.int32)
+        p = pos[:, None] - ((pos[:, None] - slot[:, :Sc]) % Sc)
+        ap = np.where(p >= 0, p, -1).astype(np.int32)
+    else:
+        Sc = 128
+        kw = dict(softcap=20.0) if mode == "softcap" else {}
+        fill = np.asarray([1, 37, 128])
+        held = np.minimum(fill + 4, Sc)              # rolled-back slots
+        ap = np.where(slot < held[:, None], slot, -1).astype(np.int32)
+        pos = (fill - 1).astype(np.int32)
+    q, k, v = (both(rng.standard_normal(s).astype(np.float32), dtype)
+               for s in ((B, 1, H, D), (B, Sc, KV, D), (B, Sc, KV, D)))
+    return (q, k, v, (jnp.asarray(ap), torch.from_numpy(ap)),
+            (jnp.asarray(pos), torch.from_numpy(pos)), kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["fill", "window", "softcap"])
+def test_decode_plain_matches_pallas_interpret(dtype, mode):
+    """The plain dense ``decode_attention`` against the Pallas kernel
+    (interpret mode, block_k=64) and the JAX oracle ``decode_attend``."""
+    (qj, qt), (kj, kt), (vj, vt), (aj, at), (pj, pt), kw = _dense_case(
+        mode, np.random.default_rng(13), dtype)
+    o_port = da.plain(qt, kt, vt, at, pt, **kw)
+    assert o_port.dtype == DTYPES[dtype][1]
+    o_pallas = jax_decode(qj, kj, vj, aj, pj, block_k=64, interpret=True,
+                          **kw)
+    o_oracle = jax_attn.decode_attend(qj, kj, vj, aj, pj, **kw)
+    assert err(o_pallas, o_port) < tol(dtype), mode
+    assert err(o_oracle, o_port) < tol(dtype), mode
+    assert torch.equal(ops.decode_attention(qt, kt, vt, at, pt, **kw),
+                       o_port)                 # CPU tensors -> plain
+
+
+def _accept_case(rng, g, V, kind):
+    """(tokens, q, p, u) as numpy.  ``random``: drafts drawn from q;
+    ``greedy``: one-hot q and p agreeing on a prefix (g = 1: full
+    acceptance, then the bonus row); ``q0``: q_tok = 0 at one draft."""
+    u = rng.random(g).astype(np.float32)
+    if kind == "greedy":
+        t = rng.integers(0, V, g + 1)
+        d = t[:g].copy()
+        if g > 1:
+            d[g // 2:] = (d[g // 2:] + 1) % V
+        q = np.eye(V, dtype=np.float32)[d]
+        p = np.eye(V, dtype=np.float32)[t]
+        return d.astype(np.int32), q, p, u
+    def soft(x):
+        e = np.exp(2 * (x - x.max(-1, keepdims=True)))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+    q = soft(rng.standard_normal((g, V)))
+    p = soft(rng.standard_normal((g + 1, V)))
+    d = np.asarray([rng.choice(V, p=row / row.sum()) for row in q],
+                   np.int32)
+    if kind == "q0":
+        q[g // 2, d[g // 2]] = 0.0
+        p[:g][np.arange(g), d] = np.maximum(p[:g][np.arange(g), d], 0.5)
+    return d, q, p, u
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("V", [32, 512])
+@pytest.mark.parametrize("kind", ["random", "greedy", "q0"])
+def test_spec_accept_plain_matches_pallas_interpret(g, V, kind):
+    """Same uniforms on both sides: n exactly, dist within 1e-6."""
+    for seed in range(2):
+        d, q, p, u = _accept_case(np.random.default_rng(seed), g, V, kind)
+        n_j, dist_j = jax_accept(jnp.asarray(d), jnp.asarray(q),
+                                 jnp.asarray(p), jnp.asarray(u),
+                                 interpret=True)
+        args = tuple(torch.from_numpy(a) for a in (d, q, p, u))
+        n_t, dist_t = sv.plain(*args)
+        assert n_t.dtype == torch.int32 and int(n_t) == int(n_j)
+        assert float(np.abs(np.asarray(dist_j) - dist_t.numpy()).max()) \
+            < 1e-6
+        n_o, dist_o = ops.spec_accept(*args)        # CPU tensors -> plain
+        assert int(n_o) == int(n_t) and torch.equal(dist_o, dist_t)
+
+
+def test_spec_verify_draws_from_the_generator():
+    """``spec_verify`` is a function of the generator's state: one seed,
+    one result; the greedy case is free of randomness."""
+    rng = np.random.default_rng(4)
+    d, q, p, _ = (torch.from_numpy(a)
+                  for a in _accept_case(rng, 4, 64, "random"))
+    one = [ops.spec_verify(d, q, p, torch.Generator().manual_seed(7))
+           for _ in range(2)]
+    assert [(int(a), int(b)) for a, b in one[0:1]] == \
+        [(int(a), int(b)) for a, b in one[1:2]]
+    dg, qg, pg, _ = (torch.from_numpy(a)
+                     for a in _accept_case(rng, 4, 64, "greedy"))
+    for seed in range(5):
+        n, nxt = ops.spec_verify(dg, qg, pg,
+                                 torch.Generator().manual_seed(seed))
+        assert int(n) == 2 and int(nxt) == int(pg[2].argmax())
+
+
 def _paged_case(rng, P, ps, NP, B, H, KV, D, dtype):
     (qj, qt), (kj, kt), (vj, vt) = (
         both(rng.standard_normal(s).astype(np.float32), dtype)
@@ -136,7 +249,7 @@ def test_paged_plain_matches_pallas_interpret(P, ps, NP, dtype, mode):
           "softcap": dict(softcap=20.0)}.get(mode, {})
     o_jax = jax_paged(qj, kj, vj, jnp.asarray(pt), jnp.asarray(pos),
                       interpret=True, **kw)
-    o_port = da.plain(qt, kt, vt, torch.from_numpy(pt),
+    o_port = da.paged_plain(qt, kt, vt, torch.from_numpy(pt),
                       torch.from_numpy(pos), **kw)
     assert err(o_jax, o_port) < tol(dtype), mode
     assert float(o_port[2].abs().max()) == 0.0      # dead row: exactly 0
@@ -157,7 +270,7 @@ def test_paged_plain_randomized_tables():
             pos[b] = int(rng.integers(0, n * ps))
         o_jax = jax_paged(qj, kj, vj, jnp.asarray(pt), jnp.asarray(pos),
                           interpret=True)
-        o_port = da.plain(qt, kt, vt, torch.from_numpy(pt),
+        o_port = da.paged_plain(qt, kt, vt, torch.from_numpy(pt),
                           torch.from_numpy(pos))
         assert err(o_jax, o_port) < 2e-5, seed
 
@@ -176,8 +289,18 @@ def test_kernels_refuse_cpu_tensors():
     pos = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         da.paged_decode_attention(q[:, :1], pool, pool, pt, pos)
+    cache = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)
+    ap = torch.zeros((1, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(q[:, :1], cache, cache, ap, pos)
+    toks = torch.zeros((2,), dtype=torch.int32)
+    probs = torch.full((3, 8), 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        sv.spec_accept(toks, probs[:2], probs, torch.zeros(2))
     assert fa.flash_attention.launches == 0
     assert da.paged_decode_attention.launches == 0
+    assert da.decode_attention.launches == 0
+    assert sv.spec_accept.launches == 0
 
 
 def test_ops_dispatch_cpu_to_plain_and_domain():
