@@ -7,14 +7,16 @@ Phases, each printing its own lines (any failure exits non-zero before
 the result line):
 
   1. device  : the card's name and power limit (nvidia-smi)
-  2. build   : the four CUDA kernels built from
+  2. build   : the six CUDA kernels built from
                ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel
   3. kernels : each kernel against its plain PyTorch version on the card
-               at the slice's shapes, with the tolerance, and its time
+               at the main path's shapes, with the tolerance, and its time
                beside the plain version's, the library call's and the bound
-  4. paths   : llama-1.5b at full width (bf16, random weights from seeds
-               0 and 1), each path driven with every launch count set to 0
-               just before it and read just after:
+               (``int8_matmul``, which no model calls, at rwkv6-7b's
+               channel-mix shapes)
+  4. paths   : each path driven with every launch count set to 0 just
+               before it and read just after; llama-1.5b at full width
+               (bf16, random weights from seeds 0 and 1):
                paged        ``PagedEngine``: six requests, page-gated
                             admission, conservation, a profile, one decode
                             step's logits against the plain versions
@@ -34,6 +36,14 @@ the result line):
                             with the draft on the target's weights:
                             acceptance 1.0, full-accept and short-tail
                             rewinds
+               then rwkv6-7b at full width (bf16, seed 0; llama freed):
+               rwkv         ``Engine(slots=4, max_len=2048)``: four
+                            requests, rwkv6_scan launched 32 times per
+                            chunk run of every prefill, a fifth request in
+                            a retired slot equal to a fresh engine's,
+                            inactive slots' state untouched, profiles,
+                            prefill logits against plain, and the chunk-64
+                            prefill state against 1536 decode steps
   5. the kernels' JSON line, the card line, and the result line
 """
 
@@ -50,11 +60,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# H100 SXM data sheet, dense: bf16 tensor cores, HBM3 bandwidth
+# H100 SXM data sheet, dense: bf16 tensor cores, fp32 on the CUDA cores
+# (no tensor cores), HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 BF16_TOL = 2e-2            # kernel vs plain, per element, abs
 SPEC_TOL = 1e-6            # spec_accept's dist, kernel vs plain, abs
+RWKV_TOL = 5e-4            # rwkv6_scan output and state, abs (JAX suite's)
+INT8_REL = 5e-3            # int8_matmul, relative to max |plain| (JAX suite's)
+# the kernel no model path calls: held by its kernel phase alone
+PHASE_ONLY = ("int8_matmul",)
 # One decode step's logits, kernels vs plain versions, relative to the
 # largest logit.  The two paths differ by about one bf16 ulp per attention
 # output, and the random-init model amplifies that over 24 layers: the
@@ -91,8 +107,9 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    tf, tb = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    tf, tb = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
 
 
@@ -120,11 +137,15 @@ def wrappers() -> dict:
     """Every kernel wrapper, by the name of its row in the JSON line."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import spec_verify as sv
     return {"flash_attention": fa.flash_attention,
             "paged_decode_attention": da.paged_decode_attention,
             "decode_attention": da.decode_attention,
-            "spec_accept": sv.spec_accept}
+            "spec_accept": sv.spec_accept,
+            "rwkv6_scan": rs.rwkv6_scan,
+            "int8_matmul": im.int8_matmul}
 
 
 def zero_counts():
@@ -432,6 +453,151 @@ def check_spec(sv, gen) -> dict:
                 replaces="src/repro/kernels/spec_verify.py:53",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
+
+
+def rwkv_runs(T: int, chunk: int = 64) -> list[tuple[int, int]]:
+    """(chunk, rows) of each ``rwkv6_scan`` call a T-token prefill makes:
+    the whole chunks in one call, a ragged tail as one chunk of its own."""
+    c = min(chunk, T)
+    cut = T // c * c
+    return [(c, cut)] + ([(T - cut, T - cut)] if cut < T else [])
+
+
+def _rwkv_inputs(B, T, H, D, gen):
+    """r, k, v, state0 at half the reference suite's unit scale (so that
+    at T = 1536 with decays near 1 the output stays near the suite's
+    magnitudes, where an absolute 5e-4 measures the kernel rather than
+    fp32 rounding), u at unit scale, and w = exp(-exp(ww)) with ww
+    uniform in [-6, 1.5]: the whole range ``_projections`` produces, down
+    to the exp(-e^1.5) floor."""
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (rnd(B, T, H, D, scale=0.5) for _ in range(3))
+    ww = -6.0 + 7.5 * torch.rand((B, T, H, D), generator=gen, device="cuda")
+    return (r, k, v, torch.exp(-torch.exp(ww)), rnd(H, D),
+            rnd(B, H, D, D, scale=0.5))
+
+
+def check_rwkv6(rs, gen) -> dict:
+    """rwkv6_scan against its plain version at rwkv6-7b's prefill shape
+    (B=1, H=64, D=64, chunk 64): T = 1536, and T = 1000 split as
+    ``timemix_parallel`` splits it (960 rows, then a 40-row tail carrying
+    the state); output and final state within 5e-4 abs."""
+    from repro_torch.kernels.ref import rwkv6_ref
+    B, H, D = 1, 64, 64
+    worst = 0.0
+    for T in (1536, 1000):
+        r, k, v, w, u, s0 = _rwkv_inputs(B, T, H, D, gen)
+        outs = {}
+        for name, fn in (("kernel", rs.rwkv6_scan), ("plain", rs.plain)):
+            s, ys, t0 = s0, [], 0
+            for c, n in rwkv_runs(T):
+                y, s = fn(r[:, t0:t0 + n], k[:, t0:t0 + n], v[:, t0:t0 + n],
+                          w[:, t0:t0 + n], u, s, chunk=c)
+                ys.append(y)
+                t0 += n
+            outs[name] = (torch.cat(ys, 1), s)
+        torch.cuda.synchronize()
+        (o, sT), (o_ref, sT_ref) = outs["kernel"], outs["plain"]
+        err = max(max_err(o, o_ref), max_err(sT, sT_ref))
+        worst = max(worst, err)
+        if not (torch.isfinite(o).all() and torch.isfinite(sT).all()) \
+                or err > RWKV_TOL:
+            raise AssertionError(f"rwkv6_scan T={T}: max_abs_err {err} > "
+                                 f"{RWKV_TOL}")
+        log(f"rwkv6_scan T={T} runs {rwkv_runs(T)}: max_abs_err={err:.3e} "
+            f"over output and state (tol {RWKV_TOL}), max |out| "
+            f"{float(o_ref.abs().max()):.3f}, max |state| "
+            f"{float(sT_ref.abs().max()):.3f}")
+    # the chunked form against the sequential oracle at the decay floor:
+    # a finding (the cumulative decay underflows inside a 64-row chunk)
+    r, k, v, w, u, s0 = _rwkv_inputs(B, 1536, H, D, gen)
+    o, sT = rs.rwkv6_scan(r, k, v, w, u, s0, chunk=64)
+    o_seq, s_seq = rwkv6_ref(r, k, v, w, u, s0)
+    log(f"rwkv6_scan finding: chunk 64 vs the sequential oracle at T=1536 "
+        f"with decays down to exp(-e^1.5): output max_abs_err="
+        f"{max_err(o, o_seq):.3e} (max |out| {float(o_seq.abs().max()):.3f}),"
+        f" state max_abs_err={max_err(sT, s_seq):.3e} (max |state| "
+        f"{float(s_seq.abs().max()):.3f}); not asserted")
+
+    # the timed shape: the main path's longest prefill, one layer's call
+    T = 1536
+    r, k, v, w, u, s0 = _rwkv_inputs(B, T, H, D, gen)
+    ms = time_ms(lambda: rs.rwkv6_scan(r, k, v, w, u, s0, chunk=64))
+    plain_ms = time_ms(lambda: rs.plain(r, k, v, w, u, s0, chunk=64),
+                       iters=5)
+    # fp32 products per chunk of c rows and head: rA S and (kA A_end)^T v
+    # (2 c D^2 each) and the strictly lower scores and their product with
+    # v (D c (c - 1) each)
+    flops = B * H * sum(4 * c * D * D + 2 * D * c * (c - 1)
+                        for c in [64] * (T // 64))
+    nbytes = 4 * (5 * B * T * H * D + H * D + 2 * B * H * D * D)
+    bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    log(f"rwkv6_scan timed B={B} T={T} H={H} D={D} chunk 64: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+        f"{flops / 1e9:.2f} GFLOP at the fp32 CUDA-core peak, "
+        f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.2f} TFLOP/s")
+    return dict(name="rwkv6_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                replaces="src/repro/kernels/rwkv6_scan.py:74",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def _int8_case(M, K, N, dtype, gen):
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    wq = torch.randint(-127, 127, (K, N), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    ws = 0.001 + 0.009 * torch.rand((N,), generator=gen, device="cuda")
+    return x, wq, ws
+
+
+def check_int8(im, gen) -> dict:
+    """int8_matmul against its plain version at rwkv6-7b's channel-mix
+    shapes, wk (4096 -> 14336) and wv (14336 -> 4096), at M = 4 (decode)
+    and M = 1536 (prefill), bf16 x, plus one f32-x case: within 5e-3 of
+    max |plain|.  Timed at both M on wk, beside the library call it
+    stands for (a bf16 matmul of the dequantised weights, scaled)."""
+    worst = worst_rel = 0.0
+    timed = {}
+    cases = [(M, K, N, torch.bfloat16) for M in (4, 1536)
+             for K, N in ((4096, 14336), (14336, 4096))]
+    cases.append((4, 4096, 14336, torch.float32))
+    for M, K, N, dtype in cases:
+        x, wq, ws = _int8_case(M, K, N, dtype, gen)
+        o = im.int8_matmul(x, wq, ws)
+        ref = im.plain(x, wq, ws)
+        torch.cuda.synchronize()
+        err = max_err(o, ref)
+        rel = err / float(ref.float().abs().max())
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        if not torch.isfinite(o.float()).all() or o.dtype != dtype \
+                or rel > INT8_REL:
+            raise AssertionError(f"int8_matmul M={M} K={K} N={N} {dtype}: "
+                                 f"rel err {rel} > {INT8_REL}")
+        line = (f"int8_matmul M={M} K={K} N={N} x {str(dtype)[6:]}: "
+                f"max_abs_err / max |plain| = {rel:.3e} (tol {INT8_REL})")
+        if (K, N, dtype) == (4096, 14336, torch.bfloat16):
+            ms = time_ms(lambda: im.int8_matmul(x, wq, ws), iters=20)
+            plain_ms = time_ms(lambda: im.plain(x, wq, ws), iters=5)
+            lib_ms = time_ms(lambda: torch.matmul(
+                x, wq.to(torch.bfloat16)) * ws, iters=20)
+            flops = 2 * M * K * N
+            nbytes = 2 * M * K + K * N + 4 * N + 2 * M * N
+            bms, by = bound(flops, nbytes)
+            timed[M] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                            bound_by=by, library_ms=lib_ms)
+            line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                     f"{flops / ms / 1e9:.1f} TFLOP/s, "
+                     f"{nbytes / ms / 1e6:.1f} GB/s")
+        log(line)
+    # the row's numbers are decode's (M = 4): W8A16 is a decode-bytes trade
+    return dict(name="int8_matmul", route="cuda",
+                source="src/repro_torch/kernels/csrc/int8_matmul.cu",
+                replaces="src/repro/kernels/int8_matmul.py:42",
+                max_abs_err=worst, max_rel_err=worst_rel, **timed[4],
+                prefill_M1536=timed[1536])
 
 
 # ---------------------------------------------------------------------------
@@ -887,6 +1053,161 @@ def run_self_draft(cfg, params) -> dict:
     return {k: counts[k] + gen_counts[k] for k in counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: rwkv6-7b on the dense Engine at full width
+# ---------------------------------------------------------------------------
+
+def _rwkv_snapshot(eng, slots):
+    return [{k: a[:, slots].clone() for k, a in layer["rwkv"].items()}
+            for grp in eng.state.caches for layer in grp]
+
+
+def _serve(eng, reqs, step_s=None):
+    for r in reqs:
+        if not eng.add_request(r):
+            raise AssertionError(f"{r.rid} refused with a slot free")
+    while eng.requests:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if step_s is not None:
+            step_s.append(time.perf_counter() - t)
+
+
+def rwkv_logits(cfg, params, prompt):
+    """One cache-free prefill's logits (1, T, V_pad) as float32."""
+    from repro_torch.models.model import forward
+    with torch.no_grad():
+        return forward(params, {"tokens": prompt}, cfg=cfg,
+                       mode="prefill").float()
+
+
+def rwkv_state_finding(cfg, params, prompt):
+    """How far a chunked prefill's final state (layer 0, chunk 64 as the
+    forward modes use, and chunk 8 as train does) lies from stepping the
+    recurrence once per token: a finding, not asserted."""
+    from repro_torch.models import rwkv6
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import embed_tokens
+    from repro_torch.models.schema import tree_map
+    p = tree_map(lambda a: a[0], params["blocks"][0][0]["rwkv"])
+    with torch.no_grad():
+        h = rmsnorm(embed_tokens(params, prompt, cfg), p["ln"]["scale"],
+                    cfg.norm_eps)
+        T = h.shape[1]
+        H, D = cfg.rwkv_heads, cfg.rwkv_head_dim
+        state = torch.zeros((1, H, D, D), device="cuda")
+        x_last = torch.zeros_like(h[:, 0])
+        for t in range(T):
+            _, state, x_last = rwkv6.timemix_step(p, h[:, t:t + 1], cfg,
+                                                  state=state, x_last=x_last)
+        top = float(state.abs().max())
+        for chunk in (64, 8):
+            _, s_par, _ = rwkv6.timemix_parallel(p, h, cfg, chunk=chunk)
+            log(f"rwkv finding: layer 0, {T}-token prefill at chunk {chunk} "
+                f"vs {T} timemix_steps: final state max_abs_err="
+                f"{max_err(s_par, state):.3e}, max |state| {top:.3f} "
+                f"(relative {max_err(s_par, state) / top:.3e})")
+
+
+def run_rwkv(cfg, params) -> dict:
+    """rwkv6-7b on ``Engine(slots=4, max_len=2048)``: four requests of
+    37, 512, 1000 and 1536 prompt tokens, 32 new each, greedy and sampled
+    rows alternating; then a fifth (greedy) request in a retired slot,
+    which must give what a fresh engine gives it while the other slots'
+    recurrent state stays untouched.  rwkv6_scan must launch exactly 32
+    times per chunk run of every prefill (two runs for a ragged prompt
+    over 64 tokens)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, Request
+    geo = dict(slots=4, max_len=2048, seed=SEED, device="cuda")
+    eng = Engine(cfg, params, **geo)
+    lens = (37, 512, 1000, 1536)
+    reqs = _requests(cfg, lens, np.random.default_rng(SEED + 5), "w")
+    rng = np.random.default_rng(SEED + 6)
+    fifth = rng.integers(0, cfg.vocab_size, 300)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for r in reqs:
+        if not eng.add_request(r):
+            raise AssertionError(f"{r.rid} refused with a slot free")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    step_s = []
+    _serve(eng, [], step_s)
+    _check_outputs(cfg, reqs)
+    # the fifth request lands in slot 0, which the 37-token request left
+    again = Request("w4", fifth, max_new_tokens=16)
+    if not eng.add_request(again) or again.slot != 0:
+        raise AssertionError(f"fifth request in slot {again.slot}, not 0")
+    idle = _rwkv_snapshot(eng, slice(1, 4))
+    _serve(eng, [])
+    for a, b in zip(idle, _rwkv_snapshot(eng, slice(1, 4))):
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"inactive slots' {k} changed across "
+                                     "decode steps")
+    fresh = Engine(cfg, params, **geo)
+    ref = Request("w4", fifth, max_new_tokens=16)
+    _serve(fresh, [ref])
+    if again.output != ref.output or len(ref.output) != 16:
+        raise AssertionError(f"reused slot {again.output} != fresh engine "
+                             f"{ref.output}")
+    counts = read_counts()
+    layers = cfg.num_layers
+    prefills = list(lens) + [len(fifth), len(fifth)]
+    want = layers * sum(len(rwkv_runs(T)) for T in prefills)
+    if counts["rwkv6_scan"] != want or any(
+            n for k, n in counts.items() if k != "rwkv6_scan"):
+        raise AssertionError(f"rwkv launch counts {counts}: need rwkv6_scan "
+                             f"= {layers} x the chunk runs of {prefills} = "
+                             f"{want}, and no other kernel")
+    med = sorted(step_s)[len(step_s) // 2]
+    log(f"rwkv: 4 requests x 32 tokens done in {len(step_s)} steps; a fifth "
+        f"({len(fifth)} prompt tokens, 16 new) in retired slot 0 gave the "
+        f"fresh engine's tokens exactly; slots 1-3 state, x_tm, x_cm "
+        f"untouched bit for bit across its 16 decode steps")
+    log(f"rwkv: launches rwkv6_scan={counts['rwkv6_scan']} ({layers} x "
+        f"{sum(len(rwkv_runs(T)) for T in prefills)} chunk runs of the "
+        f"prefills {prefills})")
+    log(f"rwkv: prefill {sum(lens)} tokens in {prefill_s:.3f} s = "
+        f"{sum(lens) / prefill_s:.1f} tok/s (first prefill includes "
+        f"set-up); decode median {med * 1e3:.3f} ms/step over "
+        f"{len(step_s)} steps (host clock, synchronised)")
+
+    # where the time goes: one 1536-token prefill, then four decode steps
+    long = Request("p0", reqs[3].prompt, max_new_tokens=8)
+    profiled(lambda: eng.add_request(long), "rwkv prefill of 1536 tokens", 1)
+    for r in _requests(cfg, lens[:3], np.random.default_rng(SEED + 5), "q"):
+        eng.add_request(r)
+    profiled(lambda: [eng.step(auto_retire=False) for _ in range(4)],
+             "rwkv decode step (4 rows)", 4)
+    for slot in list(eng.requests):
+        eng.retire(slot)
+
+    # one prefill's logits with the kernel against the plain version
+    prompt = torch.from_numpy(reqs[2].prompt.astype(np.int64)).cuda()[None]
+    out_k = rwkv_logits(cfg, params, prompt)
+    ops.set_backend("ref")
+    try:
+        out_r = rwkv_logits(cfg, params, prompt)
+    finally:
+        ops.set_backend(None)
+    compared, scale = max_err(out_k, out_r), float(out_r.abs().max())
+    agree = float((out_k.argmax(-1) == out_r.argmax(-1)).float().mean())
+    if not torch.isfinite(out_k).all() or compared > LOGIT_REL_TOL * scale:
+        raise AssertionError(f"rwkv prefill logits kernel vs plain: "
+                             f"{compared} > {LOGIT_REL_TOL} x {scale}")
+    log(f"rwkv: a 1000-token prefill's logits, rwkv6_scan vs plain: "
+        f"max_abs_err={compared:.3e}, max |logit| {scale:.3f} (tol "
+        f"{LOGIT_REL_TOL} x max |logit|), argmax agreement {agree:.4f}")
+    rwkv_state_finding(cfg, params,
+                       torch.from_numpy(reqs[3].prompt.astype(np.int64))
+                       .cuda()[None])
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -896,6 +1217,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import spec_verify as sv
     from repro_torch.models.init import init_params
 
@@ -913,8 +1236,13 @@ def main() -> int:
                 log(f"build: {name}: {ln.strip()}")
 
     gen = torch.Generator("cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    zero_counts()
     rows = [check_flash(fa, gen), check_paged(da, gen),
-            check_decode(da, gen), check_spec(sv, gen)]
+            check_decode(da, gen), check_spec(sv, gen),
+            check_rwkv6(rs, gen), check_int8(im, gen)]
+    phase = read_counts()
+    log(f"kernels: phase done in {time.perf_counter() - t0:.1f} s")
 
     cfg = get("llama-1.5b")
     t0 = time.perf_counter()
@@ -926,19 +1254,45 @@ def main() -> int:
     log(f"engine: {cfg.name} {cfg.param_count() / 1e9:.3f}B params bf16, "
         f"target (seed {SEED}) and draft (seed {SEED + 1}) initialised on "
         f"the card in {time.perf_counter() - t0:.2f} s")
-    paths = {"paged": run_engine(cfg, params),
-             "dense": run_dense(cfg, params),
-             "spec_tier": run_spec_tier(cfg, params, draft)[0],
-             "one_program": run_one_program(cfg, params),
-             "spec_generate": run_spec_generate(cfg, params, draft)[0],
-             "self_draft": run_self_draft(cfg, params)}
+    paths, wall = {}, {}
+
+    def drive(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        paths[name] = out[0] if isinstance(out, tuple) else out
+        wall[name] = round(time.perf_counter() - t, 1)
+
+    drive("paged", run_engine, cfg, params)
+    drive("dense", run_dense, cfg, params)
+    drive("spec_tier", run_spec_tier, cfg, params, draft)
+    drive("one_program", run_one_program, cfg, params)
+    drive("spec_generate", run_spec_generate, cfg, params, draft)
+    drive("self_draft", run_self_draft, cfg, params)
+    del params, draft
+    torch.cuda.empty_cache()
+    rcfg = get("rwkv6-7b")
+    t0 = time.perf_counter()
+    rparams = init_params(rcfg, torch.Generator("cuda").manual_seed(SEED),
+                          device="cuda")
+    torch.cuda.synchronize()
+    log(f"rwkv: {rcfg.name} {rcfg.param_count() / 1e9:.3f}B params bf16 "
+        f"(seed {SEED}) initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s; llama-1.5b freed")
+    drive("rwkv", run_rwkv, rcfg, rparams)
+    log(f"paths: wall seconds {wall}")
     for row in rows:
-        by_path = {p: c[row["name"]] for p, c in paths.items()
-                   if c[row["name"]]}
-        if not by_path:
-            raise AssertionError(f"{row['name']} never launched on a path")
+        name = row["name"]
+        by_path = {p: c[name] for p, c in paths.items() if c[name]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        row["phase_launches"] = phase[name]
+        if name in PHASE_ONLY:
+            # no model calls it: its kernel phase is its one launcher
+            if by_path or phase[name] < 1:
+                raise AssertionError(f"{name}: path launches {by_path}, "
+                                     f"kernel phase launches {phase[name]}")
+        elif not by_path:
+            raise AssertionError(f"{name} never launched on a path")
     log(json.dumps({"kernels": rows}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

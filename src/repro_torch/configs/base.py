@@ -181,5 +181,5 @@ def names() -> list[str]:
 def _load_all():
     # import every ported config module so it registers itself
     import importlib
-    for mod in ("llama_1p5b",):
+    for mod in ("llama_1p5b", "rwkv6_7b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

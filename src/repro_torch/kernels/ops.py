@@ -8,7 +8,7 @@
                             ways on the card and compare
 
 ``spec_accept`` / ``spec_verify`` dispatch on the device of
-``target_probs``.
+``target_probs``, ``rwkv6_scan`` on ``r``'s, ``int8_matmul`` on ``x``'s.
 
 Prefill attention keeps the reference's prompt-length domain: the JAX
 blockwise path and the Pallas kernel both require every sequence length
@@ -21,6 +21,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import int8_matmul as im
+from repro_torch.kernels import rwkv6_scan as rs
 from repro_torch.kernels import spec_verify as sv
 
 _BACKENDS = (None, "ref")
@@ -111,3 +113,23 @@ def spec_verify(draft_tokens, draft_probs, target_probs, generator):
     ``torch.Generator``): (n_accepted (), next_token ()), int32."""
     return sv.verify(spec_accept, draft_tokens, draft_probs, target_probs,
                      generator)
+
+
+# ---------------------------------------------------------------------------
+# recurrent mixers and quantised weights
+# ---------------------------------------------------------------------------
+
+def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
+    """Chunked RWKV6 linear attention: (out (B,T,H,D), final state
+    (B,H,D,D)), fp32.  T must be a multiple of ``min(chunk, T)``."""
+    if _use_kernel(r):
+        return rs.rwkv6_scan(r, k, v, w, u, state0, chunk=chunk)
+    return rs.plain(r, k, v, w, u, state0, chunk=chunk)
+
+
+def int8_matmul(x, w_q, w_scale):
+    """x (..., K) times int8 w_q (K, N) with per-channel fp32 scales,
+    in x's dtype (W8A16: x rounded to bf16, fp32 accumulation)."""
+    if _use_kernel(x):
+        return im.int8_matmul(x, w_q, w_scale)
+    return im.plain(x, w_q, w_scale)

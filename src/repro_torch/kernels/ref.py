@@ -2,8 +2,9 @@
 
 Torch counterparts of ``repro/models/attention.py``'s oracles
 (``reference_attention``, ``decode_attend``, ``paged_decode_attend``)
-and of the acceptance rule of ``repro/kernels/ref.py``
-(``spec_accept``).  The attention oracles keep the same numerics:
+and of ``repro/kernels/ref.py``'s acceptance rule (``spec_accept``),
+int8 matmul (``int8_matmul_ref``) and sequential RWKV6 recurrence
+(``rwkv6_ref``).  The attention oracles keep the same numerics:
 scores in fp32 from the inputs' products, softmax in fp32, probabilities
 rounded to ``v.dtype`` before the P V product, fp32 accumulation, output
 in ``q.dtype``.  The CPU tests hold them against the JAX package, and
@@ -133,3 +134,27 @@ def spec_accept(draft_tokens, draft_probs, target_probs, u):
     rs = resid.sum()
     dist = torch.where(rs > 1e-9, resid / rs.clamp(min=1e-30), p_n)
     return n, dist
+
+
+def int8_matmul_ref(x, w_q, w_scale):
+    """x: (..., K); w_q: (K, N) int8; w_scale: (N,) fp32.  The product in
+    fp32 of x as given (no bf16 rounding) and the dequantised weights,
+    cast back to ``x.dtype``."""
+    y = torch.einsum("...k,kn->...n", x.float(), w_q.float())
+    return (y * w_scale).to(x.dtype)
+
+
+def rwkv6_ref(r, k, v, w, u, state):
+    """Sequential RWKV6 recurrence oracle.
+
+    r,k,v,w: (B,T,H,D) fp32 (w = per-step decay in (0,1)); u: (H,D);
+    state: (B,H,D,D).  Returns (out (B,T,H,D), final state)."""
+    ys = []
+    S = state
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = torch.einsum("bhk,bhv->bhkv", kt, vt)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt,
+                               S + u[None, :, :, None] * kv))
+        S = wt[..., None] * S + kv
+    return torch.stack(ys, 1), S

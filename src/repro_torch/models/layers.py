@@ -1,6 +1,6 @@
 """Per-layer building blocks: norms, RoPE, the gated MLP, the attention
-module over dense per-row KV caches or shared KV page pools, and the
-layer dispatcher.
+module over dense per-row KV caches or shared KV page pools, the RWKV6
+recurrent cache, and the layer dispatcher.
 
 Dense cache convention (one dict per attention layer):
   k, v     : (B, S_c, KV, Dh)   S_c = window for "local", seq budget else
@@ -17,9 +17,15 @@ Paged cache convention (one dict per attention layer):
 Logical position i of row b lives at offset ``i % page_size`` of page
 ``page_table[b, i // page_size]``.  RoPE is applied before caching.
 
+RWKV6 cache (one dict per rwkv layer):
+  state      : (B, H, Dh, Dh) fp32 matrix state
+  x_tm, x_cm : (B, d) the last token's input to the time / channel mix
+  write      : (B,) bool, optional, as for the dense attention cache
+
 Unlike the JAX package, which returns new caches from ``.at[].set``, the
-port writes K/V into the caches and pools in place (they are the engine's
-largest tensors; copying them per layer per step would dominate decode).
+port writes K/V into the caches and pools, and the recurrent state into
+its cache, in place (they are the engine's largest tensors; copying them
+per layer per step would dominate decode).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import decode_attend
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.init import torch_dtype
 
 
@@ -110,16 +117,45 @@ def _write_cache(cache, lspec, k, v, positions):
     ap[rows, slots] = positions
 
 
+def make_rwkv_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+    """The zero recurrent state of one rwkv layer."""
+    H, Dh = cfg.rwkv_heads, cfg.rwkv_head_dim
+    dt = torch_dtype(cfg.dtype)
+    return {"state": torch.zeros((batch, H, Dh, Dh), dtype=torch.float32,
+                                 device=device),
+            "x_tm": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                device=device),
+            "x_cm": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                device=device)}
+
+
 def make_layer_cache(cfg: ModelConfig, lspec: LayerSpec, batch: int,
                      max_len: int, device="cuda") -> dict:
-    """One layer's dense cache.  Attention mixers only: the recurrent
-    mixers' caches come with their model families (ROADMAP Queue 1)."""
-    if lspec.mixer not in ("attn", "local") or cfg.cross_attention:
-        raise NotImplementedError(
-            f"layer {lspec} (cross-attention {cfg.cross_attention}) has no "
-            "ported cache yet (ROADMAP Queue 1, other model families)")
-    return {"attn": make_attn_cache(cfg, lspec, batch, max_len,
-                                    device=device)}
+    """One layer's dense cache: attention or rwkv mixers.  mamba and
+    cross-attention caches come with their model families (ROADMAP
+    Queue 1)."""
+    if lspec.mixer in ("attn", "local") and not cfg.cross_attention:
+        return {"attn": make_attn_cache(cfg, lspec, batch, max_len,
+                                        device=device)}
+    if lspec.mixer == "rwkv" and not cfg.cross_attention:
+        return {"rwkv": make_rwkv_cache(cfg, batch, device=device)}
+    raise NotImplementedError(
+        f"layer {lspec} (cross-attention {cfg.cross_attention}) has no "
+        "ported cache yet (ROADMAP Queue 1, other model families)")
+
+
+def _write_rwkv(cache, state, x_tm, x_cm):
+    """Store a layer's new recurrent state in place; rows whose
+    ``cache["write"]`` is False keep theirs (the JAX engine masks them
+    back with ``jnp.where`` after the step)."""
+    write = cache.get("write")
+    for key, new in (("state", state), ("x_tm", x_tm), ("x_cm", x_cm)):
+        old = cache[key]
+        new = new.to(old.dtype)
+        if write is not None:
+            new = torch.where(write.reshape((-1,) + (1,) * (old.ndim - 1)),
+                              new, old)
+        old.copy_(new)
 
 
 def make_paged_attn_cache(cfg: ModelConfig, pages: int, page_size: int,
@@ -215,12 +251,17 @@ def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
 
 def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
                 positions, cache=None):
-    """One layer: attention mixer + dense gated MLP.  Returns x."""
-    if lspec.mixer not in ("attn", "local") or lspec.ffn not in (
+    """One layer: an attention mixer + the dense gated MLP, or the rwkv
+    time mix + the rwkv channel mix.  Returns x; caches are written in
+    place."""
+    if lspec.mixer not in ("attn", "local", "rwkv") or lspec.ffn not in (
             "dense", "none"):
         raise NotImplementedError(
             f"layer {lspec} is not ported yet (ROADMAP Queue 1, other "
             "model families)")
+    if lspec.mixer == "rwkv":
+        return _rwkv_layer(p, x, cfg=cfg, lspec=lspec, mode=mode,
+                           cache=(cache or {}).get("rwkv"))
     h = rmsnorm(x, p["attn"]["ln"]["scale"], cfg.norm_eps)
     x = x + attention_apply(p["attn"], h, cfg=cfg, lspec=lspec, mode=mode,
                             positions=positions,
@@ -228,4 +269,35 @@ def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
     if lspec.ffn == "dense":
         h = rmsnorm(x, p["mlp"]["ln"]["scale"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg)
+    return x
+
+
+def _rwkv_layer(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
+                cache):
+    """RWKV6 layer: time mix, then (ffn "dense") the channel mix.  Decode
+    steps the recurrence one token; train and prefill run the chunked
+    form (chunk 8 in train, for the backward's decay division, 64 in the
+    forward-only modes, as the reference chooses).  Outside train the
+    new state goes into ``cache`` in place."""
+    h = rmsnorm(x, p["rwkv"]["ln"]["scale"], cfg.norm_eps)
+    if mode == "decode":
+        h, st, xl = rwkv_mod.timemix_step(
+            p["rwkv"], h, cfg, state=cache["state"],
+            x_last=cache["x_tm"].to(h.dtype))
+    else:
+        h, st, xl = rwkv_mod.timemix_parallel(
+            p["rwkv"], h, cfg,
+            state=cache["state"] if cache else None,
+            x_last=cache["x_tm"].to(h.dtype) if cache else None,
+            chunk=8 if mode == "train" else 64)
+    x = x + h
+    x_cm = cache["x_cm"] if cache else None
+    if lspec.ffn == "dense":
+        h = rmsnorm(x, p["mlp"]["ln"]["scale"], cfg.norm_eps)
+        h, x_cm = rwkv_mod.channelmix(
+            p["mlp"], h,
+            x_last=x_cm.to(h.dtype) if x_cm is not None else None)
+        x = x + h
+    if mode != "train" and cache:
+        _write_rwkv(cache, st, xl, x_cm)
     return x

@@ -6,9 +6,12 @@ package, and a Python loop runs groups x repeats x layers where JAX uses
 ``lax.scan``.  One ``forward`` serves all three modes:
 
   train   : full sequence, no cache
-  prefill : full sequence, writes the row's KV cache or pages
-  decode  : one token per row (or a verify window, dense caches only)
-            against the KV cache or pages
+  prefill : full sequence, writes the row's KV cache or pages, or its
+            recurrent state (rwkv layers, starting from the state the
+            cache holds)
+  decode  : one token per row (or a verify window, dense attention
+            caches only) against the KV cache or pages, or one step of
+            the recurrence
 """
 
 from __future__ import annotations
@@ -23,8 +26,9 @@ from repro_torch.models.schema import tree_map
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Full dense model cache: [group][layer_in_block], every leaf stacked
-    over repeats (a leading ``repeats`` dim, then batch), as in the JAX
+    """Full dense model cache (attention KV rows, or the recurrent state
+    of rwkv layers): [group][layer_in_block], every leaf stacked over
+    repeats (a leading ``repeats`` dim, then batch), as in the JAX
     package."""
     dev = resolve(device)
     groups = []
@@ -69,10 +73,11 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
 
     batch: {"tokens": (B, S)}.  ``caches`` is the per-layer tree
     ([group][layer] {"attn": {k, v, abs_pos[, write]}} dense, or
-    {"attn": {k_pool, v_pool, page_table}} paged, every leaf stacked
-    over repeats); it is written in place, where the JAX ``forward``
-    returns new caches (and an aux loss, always 0 for the dense models
-    ported so far).
+    {"attn": {k_pool, v_pool, page_table}} paged, or {"rwkv": {state,
+    x_tm, x_cm[, write]}} recurrent, every leaf stacked over repeats);
+    it is written in place, where the JAX ``forward`` returns new caches
+    (and an aux loss, always 0 for the dense and rwkv models ported so
+    far).
     """
     if cfg.encoder_blocks or cfg.num_patches or cfg.cross_attention:
         raise NotImplementedError(

@@ -8,16 +8,23 @@ surface (``step_probs``, the three ``verify_slots*`` modes and
 ``rollback_slot``) is the draft and verify side of the paper's
 speculative execution.
 
-Prefill runs the hand-written flash-attention kernel; every one-token
-decode step runs the dense ``decode_attention`` kernel over the caches
-in place; a wide verify window (several queries per slot) runs the
-plain ``decode_attend``, as the JAX package leaves that window to XLA.
+Prefill runs the hand-written flash-attention kernel (attention
+models) or the ``rwkv6_scan`` kernel (rwkv models); every one-token
+decode step of an attention model runs the dense ``decode_attention``
+kernel over the caches in place, and an rwkv model steps its recurrence
+in plain torch; a wide verify window (several queries per slot) runs
+the plain ``decode_attend``, as the JAX package leaves that window to
+XLA.
 
 Where the JAX package returns a new state from each jitted step, the
 port updates the state's tensors in place, and masks inactive slots'
 cache writes inside the forward (``cache["write"]``) instead of copying
-every cache back afterwards.  The migration surface (``extract_slot``,
-``inject_slot``, ``slot_like``) is a later slice (ROADMAP Queue 1).
+every cache back afterwards.  A request starts from the zero recurrent
+state: ``add_request`` clears the slot's rwkv caches before its prefill
+(the JAX engine starts from whatever the slot's last request left).
+The migration surface (``extract_slot``, ``inject_slot``,
+``slot_like``) and, on models with recurrent mixers, the verify modes
+and ``rollback_slot`` are later slices (ROADMAP Queue 1).
 This module also carries the ``Request`` record and its wire form,
 which ``serving.paged`` imports.
 """
@@ -95,7 +102,7 @@ class EngineState:
     Tensors live on the engine's device and are updated in place, except
     ``rng``: (B, 2) int64 ``(seed, counter)`` pairs on the CPU (see
     ``serving.sampling``)."""
-    caches: list                     # [group][layer] {"attn": {k, v, abs_pos}}
+    caches: list                     # [group][layer] {"attn"|"rwkv": {...}}
     tokens: torch.Tensor             # (B, max_len) int32 prompt + generated
     positions: torch.Tensor          # (B,) int32 next position to write
     last_token: torch.Tensor         # (B,) int32 most recent token per slot
@@ -129,6 +136,9 @@ class Engine:
                              f"on {self.device}")
         self.cfg = cfg
         self.params = params
+        mixers = {ls.mixer for b in cfg.blocks for ls in b.layers}
+        self._attention = bool(mixers & {"attn", "local"})
+        self._recurrent = "rwkv" in mixers
         self.slots = slots
         self.max_len = max_len
         self.requests: dict[int, Request] = {}
@@ -209,7 +219,8 @@ class Engine:
             prefix = np.concatenate(
                 [prefix, np.asarray(committed, np.int32)])
         plen = len(prefix)
-        check_domain(plen)               # refuse before the slot is taken
+        if self._attention:
+            check_domain(plen)           # refuse before the slot is taken
         slot = free[0]
         req.slot = slot
         self.requests[slot] = req
@@ -296,6 +307,16 @@ class Engine:
                 and all(ls.mixer in ("attn", "local")
                         for b in self.cfg.blocks for ls in b.layers))
 
+    def _refuse_recurrent(self, what: str):
+        """The verify modes and ``rollback_slot`` rewind or teacher-force
+        positions only; a recurrent state would keep the rejected drafts
+        (the JAX ``rollback_slot`` leaves it so)."""
+        if self._recurrent:
+            raise NotImplementedError(
+                f"Engine.{what} on a model with recurrent mixers "
+                f"({self.cfg.name}) is not ported: ROADMAP Queue 1 item 9 "
+                "(recurrent-state rollback)")
+
     def verify_slots(self, drafts: dict[int, list[int]], *,
                      width: int | None = None) -> dict[int, tuple[int, int]]:
         """Teacher-forced batch verification of drafted tails in ONE wide
@@ -310,6 +331,7 @@ class Engine:
         decode run of this engine; ``verify_slots_stepwise`` is the
         bit-exact mode.  Slot state advances to the committed prefix.
         Returns {slot: (n_accepted, correction_token | None)}."""
+        self._refuse_recurrent("verify_slots")
         assert drafts, "nothing to verify"
         g = width if width is not None else max(map(len, drafts.values()))
         B = self.slots
@@ -344,6 +366,7 @@ class Engine:
         step emits *is* the pure-run token.  Slots that finish (first
         rejection, or tail exhausted) are deactivated for the rest of
         the burst.  Same return contract as ``verify_slots``."""
+        self._refuse_recurrent("verify_slots_stepwise")
         assert drafts, "nothing to verify"
         saved_active = self.state.active.clone()
         burst = torch.zeros((self.slots,), dtype=torch.bool)
@@ -390,6 +413,7 @@ class Engine:
         fully-accepted window commits only the drafts (no bonus token:
         the KV-gap rule of ``_verify_window``).  Returns {slot:
         (n_accepted, commit_token | None)}."""
+        self._refuse_recurrent("verify_slots_distribution")
         assert drafts, "nothing to verify"
         saved_active = self.state.active.clone()
         positions = self.state.positions.cpu().numpy()
@@ -456,6 +480,7 @@ class Engine:
         Cache rows the dropped suffix wrote stay behind but are invisible
         -- their ``abs_pos`` exceeds the rewound position -- and decode
         rewrites each row in place before it becomes attendable again."""
+        self._refuse_recurrent("rollback_slot")
         s = self.state
         p0 = int(s.positions[slot]) - drafted
         assert p0 >= 0, (slot, drafted)
@@ -475,28 +500,31 @@ class Engine:
 # ---------------------------------------------------------------------------
 
 def _weave_write(caches, write):
-    """Attach the (B,) write mask to every attn layer's cache dict,
-    expanded (a view) to the layer's stacked (R, B)."""
-    out = []
-    for grp in caches:
-        layers = []
-        for layer in grp:
-            a = dict(layer["attn"])
-            R = a["k"].shape[0]
-            a["write"] = write[None].expand(R, write.shape[0])
-            layers.append({"attn": a})
-        out.append(layers)
-    return out
+    """Attach the (B,) write mask to every layer's cache dicts (attn or
+    rwkv), expanded (a view) to the layer's stacked (R, B)."""
+    def weave(c):
+        c = dict(c)
+        R = next(iter(c.values())).shape[0]
+        c["write"] = write[None].expand(R, write.shape[0])
+        return c
+    return [[{kind: weave(c) for kind, c in layer.items()} for layer in grp]
+            for grp in caches]
 
 
 @torch.no_grad()
 def _prefill(params, state: EngineState, prompt, *, slot: int, plen: int,
              cfg):
     """Prefill one slot: the batch=1 forward writes straight into the
-    slot's cache rows (views of the batched caches)."""
-    sub = [[{"attn": {k: a[:, slot:slot + 1]
-                      for k, a in layer["attn"].items()}}
+    slot's cache rows (views of the batched caches).  The slot's
+    recurrent caches are zeroed first, so the request starts from the
+    zero state; stale attention rows stay hidden by ``abs_pos``."""
+    sub = [[{kind: {k: a[:, slot:slot + 1] for k, a in c.items()}
+             for kind, c in layer.items()}
             for layer in grp] for grp in state.caches]
+    for grp in sub:
+        for layer in grp:
+            for a in layer.get("rwkv", {}).values():
+                a.zero_()
     forward(params, {"tokens": prompt}, cfg=cfg, mode="prefill", caches=sub)
     state.tokens[slot, :plen] = prompt[0]
     state.positions[slot] = plen

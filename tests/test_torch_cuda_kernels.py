@@ -8,7 +8,8 @@ port's dependencies:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
 Tolerances as in the reference kernel tests: bf16 2e-2 abs, f32 2e-5 abs;
-``spec_accept``: n exactly, dist 1e-6 abs.
+``spec_accept``: n exactly, dist 1e-6 abs; ``rwkv6_scan``: 5e-4 abs on
+output and state; ``int8_matmul``: 5e-3 relative to the largest |plain|.
 """
 
 import numpy as np
@@ -18,7 +19,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import int8_matmul as im  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 from repro_torch.kernels import spec_verify as sv  # noqa: E402
 
 MODES = {"causal": dict(causal=True), "window": dict(causal=True, window=48),
@@ -319,3 +322,159 @@ def test_tiny_dense_engine_on_the_card_runs_the_kernels(cuda):
     assert sv.spec_accept.launches == s0 + 1
     n_acc, tok = res[r.slot]
     assert 0 <= n_acc <= 3 and (tok is None) == (n_acc == 3)
+
+
+def _rwkv(cuda, B, T, H, D, seed, ww_lo=None):
+    """r, k, v, w, u, state0 on the card; w in (0.2, 0.99) as in the
+    reference sweep, or exp(-exp(ww)) with ww in [ww_lo, 1.5], the range
+    ``rwkv6._projections`` produces."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    r, k, v = rnd(B, T, H, D), rnd(B, T, H, D), rnd(B, T, H, D)
+    x = torch.rand((B, T, H, D), generator=gen, device=cuda)
+    w = (0.2 + 0.79 * x if ww_lo is None
+         else torch.exp(-torch.exp(ww_lo + (1.5 - ww_lo) * x)))
+    return r, k, v, w, rnd(H, D), rnd(B, H, D, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,D,chunk", [
+    (1, 64, 2, 16, 16), (2, 128, 4, 32, 32), (1, 96, 1, 64, 32),
+    (1, 40, 2, 16, 64), (2, 192, 3, 64, 64), (1, 37, 2, 32, 37),
+    (1, 30, 1, 64, 6),
+])
+@pytest.mark.parametrize("decay", ["sweep", "floor"])
+def test_rwkv6_kernel_matches_plain(cuda, B, T, H, D, chunk, decay):
+    a = _rwkv(cuda, B, T, H, D, T + D, -6.0 if decay == "floor" else None)
+    o, s = rs.rwkv6_scan(*a, chunk=chunk)
+    o_ref, s_ref = rs.plain(*a, chunk=chunk)
+    assert o.shape == (B, T, H, D) and s.shape == (B, H, D, D)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    assert float((o - o_ref).abs().max()) < 5e-4
+    assert float((s - s_ref).abs().max()) < 5e-4
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_reads_strided_inputs_and_refuses(cuda):
+    """Slices along T (as timemix_parallel's ragged split passes them) are
+    read in place; the wrapper refuses what the kernel does not take."""
+    r, k, v, w, u, s0 = _rwkv(cuda, 2, 100, 2, 32, 0)
+    o, s = rs.rwkv6_scan(r[:, :96], k[:, :96], v[:, :96], w[:, :96], u, s0,
+                         chunk=32)
+    o_ref, s_ref = rs.plain(r[:, :96].contiguous(), k[:, :96], v[:, :96],
+                            w[:, :96], u, s0, chunk=32)
+    assert float((o - o_ref).abs().max()) < 5e-4
+    assert float((s - s_ref).abs().max()) < 5e-4
+    n = rs.rwkv6_scan.launches
+    ops.rwkv6_scan(r, k, v, w, u, s0, chunk=50)
+    assert rs.rwkv6_scan.launches == n + 1            # CUDA -> kernel
+    ops.set_backend("ref")
+    try:
+        ops.rwkv6_scan(r, k, v, w, u, s0, chunk=50)
+    finally:
+        ops.set_backend(None)
+    assert rs.rwkv6_scan.launches == n + 1            # "ref" -> plain
+    with pytest.raises(ValueError, match="multiple"):
+        rs.rwkv6_scan(r, k, v, w, u, s0, chunk=64)
+    with pytest.raises(ValueError, match="float32"):
+        rs.rwkv6_scan(r.bfloat16(), k, v, w, u, s0, chunk=50)
+    with pytest.raises(ValueError, match="head dim"):
+        rs.rwkv6_scan(*(x[..., :8].contiguous() for x in (r, k, v, w)),
+                      u[:, :8].contiguous(),
+                      s0[:, :, :8, :8].contiguous(), chunk=50)
+    with pytest.raises(ValueError, match="unit-stride"):
+        rs.rwkv6_scan(r.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                      w, u, s0, chunk=50)
+    with pytest.raises(ValueError, match="CUDA"):
+        rs.rwkv6_scan(r, k, v, w, u.cpu(), s0, chunk=50)
+    assert rs.rwkv6_scan.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 1024), (64, 256, 128),
+                                   (130, 200, 70), (1, 33, 17),
+                                   (77, 1000, 300)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_kernel_matches_plain(cuda, M, K, N, dtype):
+    """Whole tiles and edges that are not a multiple of the 64 x 64 x 32
+    tile (nor of the 16-byte vector loads)."""
+    gen = torch.Generator(cuda).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
+    wq = torch.randint(-128, 128, (K, N), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    ws = 0.001 + 0.009 * torch.rand((N,), generator=gen, device=cuda)
+    o = im.int8_matmul(x, wq, ws)
+    o_ref = im.plain(x, wq, ws)
+    assert o.dtype == dtype and o.shape == (M, N)
+    rel = float((o.float() - o_ref.float()).abs().max()
+                / o_ref.float().abs().max())
+    assert rel < 5e-3
+
+
+@pytest.mark.cuda
+def test_int8_kernel_dispatch_and_refusals(cuda):
+    x = torch.randn((2, 3, 64), device=cuda, dtype=torch.bfloat16)
+    wq = torch.randint(-128, 128, (64, 32), device=cuda, dtype=torch.int8)
+    ws = torch.rand((32,), device=cuda)
+    n = im.int8_matmul.launches
+    o = ops.int8_matmul(x, wq, ws)
+    assert o.shape == (2, 3, 32) and im.int8_matmul.launches == n + 1
+    ops.set_backend("ref")
+    try:
+        ops.int8_matmul(x, wq, ws)
+    finally:
+        ops.set_backend(None)
+    assert im.int8_matmul.launches == n + 1
+    # an x view that is not contiguous is packed by the wrapper
+    xt = torch.randn((64, 5), device=cuda, dtype=torch.bfloat16).T
+    rel = float((im.int8_matmul(xt, wq, ws).float()
+                 - im.plain(xt, wq, ws).float()).abs().max()
+                / im.plain(xt, wq, ws).float().abs().max())
+    assert rel < 5e-3
+    with pytest.raises(ValueError, match="int8"):
+        im.int8_matmul(x, wq.float(), ws)
+    with pytest.raises(ValueError, match="shapes"):
+        im.int8_matmul(x[..., :32], wq, ws)
+    with pytest.raises(ValueError, match="x in"):
+        im.int8_matmul(x.half(), wq, ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.int8_matmul(x, wq.T.contiguous().T, ws)
+    with pytest.raises(ValueError, match="CUDA"):
+        im.int8_matmul(x, wq.cpu(), ws)
+
+
+@pytest.mark.cuda
+def test_tiny_rwkv_engine_on_the_card_runs_the_scan(cuda):
+    """A narrow rwkv6 (head dim 64) on the dense Engine: every prefill
+    runs rwkv6_scan once per layer per chunk run (twice for a ragged
+    prompt over 64 tokens), and a reused slot matches a fresh engine."""
+    from repro_torch.configs import get
+    from repro_torch.configs.tiny import make_tiny
+    from repro_torch.models.init import init_params
+    from repro_torch.serving.engine import Engine, Request
+    cfg = make_tiny(get("rwkv6-7b"), d_model=256).replace(rwkv_head_dim=64)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    eng = Engine(cfg, params, slots=2, max_len=256, device=cuda)
+    n0 = rs.rwkv6_scan.launches
+    lens = (30, 100)                   # one chunk run; 64 + a 36-row tail
+    reqs = [Request(f"r{i}", np.arange(2, 2 + n) % 500, max_new_tokens=6)
+            for i, n in enumerate(lens)]
+    for r in reqs:
+        assert eng.add_request(r)
+    while eng.requests:
+        eng.step()
+    assert all(len(r.output) == 6 for r in reqs)
+    assert rs.rwkv6_scan.launches - n0 == cfg.num_layers * (1 + 2)
+    again = Request("b", np.arange(5, 45) % 500, max_new_tokens=6)
+    assert eng.add_request(again) and again.slot == 0
+    while eng.requests:
+        eng.step()
+    fresh = Engine(cfg, params, slots=2, max_len=256, device=cuda)
+    ref = Request("b", np.arange(5, 45) % 500, max_new_tokens=6)
+    assert fresh.add_request(ref)
+    while fresh.requests:
+        fresh.step()
+    assert again.output == ref.output

@@ -3,7 +3,8 @@
 The same numpy-seeded inputs go through the JAX Pallas kernels (interpret
 mode, as tests/test_kernels.py and tests/test_paging.py run them on the
 CPU) or the JAX oracles, and through the port's plain PyTorch versions.
-Tolerances as in the reference tests: f32 2e-5 abs, bf16 2e-2 abs.  The
+Tolerances as in the reference tests: f32 2e-5 abs, bf16 2e-2 abs, rwkv
+5e-4 abs, int8 5e-3 relative to the largest |reference|.  The
 CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda_kernels.py.
 """
@@ -21,11 +22,16 @@ from repro.kernels.decode_attention import \
     paged_decode_attention as jax_paged  # noqa: E402
 from repro.kernels.flash_attention import \
     flash_attention as jax_flash  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.int8_matmul import int8_matmul as jax_int8  # noqa: E402
+from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv  # noqa: E402
 from repro.kernels.spec_verify import spec_accept as jax_accept  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import int8_matmul as im  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 from repro_torch.kernels import spec_verify as sv  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -275,6 +281,114 @@ def test_paged_plain_randomized_tables():
         assert err(o_jax, o_port) < 2e-5, seed
 
 
+# -- rwkv6 scan and int8 matmul ---------------------------------------------
+
+RWKV_TOL = 5e-4
+INT8_REL = 5e-3
+
+
+def _rwkv_inputs(rng, B, T, H, D, ww_lo=None):
+    """r, k, v, w, u, state0 as float32 numpy, as tests/test_kernels.py
+    draws them; ``ww_lo`` draws w = exp(-exp(ww)) with ww in [ww_lo, 1.5]
+    instead, the range ``rwkv6._projections`` can produce."""
+    r, k, v = (rng.standard_normal((B, T, H, D)).astype(np.float32)
+               for _ in range(3))
+    if ww_lo is None:
+        w = rng.uniform(0.2, 0.99, (B, T, H, D)).astype(np.float32)
+    else:
+        w = np.exp(-np.exp(rng.uniform(ww_lo, 1.5, (B, T, H, D)))).astype(
+            np.float32)
+    u = rng.standard_normal((H, D)).astype(np.float32)
+    s0 = rng.standard_normal((B, H, D, D)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("B,T,H,D,chunk", [
+    (1, 64, 2, 16, 16), (2, 128, 4, 32, 32), (1, 96, 1, 64, 32),
+    (1, 40, 2, 16, 64),     # T < chunk: one chunk of 40
+])
+def test_rwkv6_plain_matches_pallas_interpret(B, T, H, D, chunk):
+    """The plain chunked scan against the Pallas kernel (interpret mode)
+    and both packages' sequential oracles, at the sweep of
+    tests/test_kernels.py: output and final state within 5e-4."""
+    a = _rwkv_inputs(np.random.default_rng(17), B, T, H, D)
+    o_j, s_j = jax_rwkv(*map(jnp.asarray, a), chunk=chunk, interpret=True)
+    o_r, s_r = jax_ref.rwkv6_ref(*map(jnp.asarray, a))
+    t = tuple(torch.from_numpy(x) for x in a)
+    o_t, s_t = rs.plain(*t, chunk=chunk)
+    o_o, s_o = ref.rwkv6_ref(*t)
+    assert o_t.dtype == torch.float32 and o_t.shape == (B, T, H, D)
+    for jo, js in ((o_j, s_j), (o_r, s_r)):
+        assert err(jo, o_t) < RWKV_TOL and err(js, s_t) < RWKV_TOL
+    assert err(o_r, o_o) < RWKV_TOL and err(s_r, s_o) < RWKV_TOL
+    o_d, s_d = ops.rwkv6_scan(*t, chunk=chunk)      # CPU tensors -> plain
+    assert torch.equal(o_d, o_t) and torch.equal(s_d, s_t)
+
+
+def test_rwkv6_ragged_tail_split_matches_oracle():
+    """T = 100 at chunk 32, split as timemix_parallel splits it: the 96
+    whole-chunk rows in one call, then the 4-row tail as its own chunk,
+    carrying the state; against the sequential oracle."""
+    a = _rwkv_inputs(np.random.default_rng(19), 2, 100, 2, 32)
+    t = tuple(torch.from_numpy(x) for x in a)
+    r, k, v, w, u, s0 = t
+    o1, s1 = rs.plain(r[:, :96], k[:, :96], v[:, :96], w[:, :96], u, s0,
+                      chunk=32)
+    o2, s2 = rs.plain(r[:, 96:], k[:, 96:], v[:, 96:], w[:, 96:], u, s1,
+                      chunk=4)
+    o_r, s_r = jax_ref.rwkv6_ref(*map(jnp.asarray, a))
+    assert err(o_r, torch.cat([o1, o2], 1)) < RWKV_TOL
+    assert err(s_r, s2) < RWKV_TOL
+    with pytest.raises(ValueError, match="multiple"):
+        rs.plain(*t, chunk=32)
+
+
+def test_rwkv6_plain_matches_pallas_at_the_decay_floor():
+    """Decays down to exp(-e^1.5) at chunk 64, where the cumulative decay
+    underflows inside a chunk: the plain version follows the Pallas
+    kernel's arithmetic (the 1e-24 clamp) there too."""
+    a = _rwkv_inputs(np.random.default_rng(23), 1, 128, 2, 16, ww_lo=-6.0)
+    o_j, s_j = jax_rwkv(*map(jnp.asarray, a), chunk=64, interpret=True)
+    o_t, s_t = rs.plain(*(torch.from_numpy(x) for x in a), chunk=64)
+    assert torch.isfinite(o_t).all() and torch.isfinite(s_t).all()
+    assert err(o_j, o_t) < RWKV_TOL and err(s_j, s_t) < RWKV_TOL
+
+
+def _rel(ref_out, out) -> float:
+    a = np.asarray(jnp.asarray(ref_out, jnp.float32))
+    return float(np.abs(a - out.float().numpy()).max() / np.abs(a).max())
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 128, 64), (32, 256, 128),
+                                   (5, 96, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_plain_matches_pallas_interpret(M, K, N, dtype):
+    """The plain W8A16 product against the Pallas kernel (interpret mode,
+    which rounds x to bf16 as the port does) and the oracle
+    ``int8_matmul_ref`` (which does not), within 5e-3 relative.  The
+    ragged (5, 96, 40) case runs the Pallas kernel with whole blocks."""
+    rng = np.random.default_rng(29)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    wq = rng.integers(-127, 127, (K, N)).astype(np.int8)
+    ws = rng.uniform(0.001, 0.01, (N,)).astype(np.float32)
+    xj, xt = both(x, dtype)
+    o_t = im.plain(xt, torch.from_numpy(wq), torch.from_numpy(ws))
+    assert o_t.dtype == DTYPES[dtype][1] and o_t.shape == (M, N)
+    blocks = dict(block_m=32, block_n=64, block_k=64) if M % 32 == 0 \
+        else dict(block_m=M, block_n=N, block_k=K)
+    o_p = jax_int8(xj, jnp.asarray(wq), jnp.asarray(ws), interpret=True,
+                   **blocks)
+    o_r = jax_ref.int8_matmul_ref(xj, jnp.asarray(wq), jnp.asarray(ws))
+    assert _rel(o_p, o_t) < INT8_REL and _rel(o_r, o_t) < INT8_REL
+    o_o = ref.int8_matmul_ref(xt, torch.from_numpy(wq), torch.from_numpy(ws))
+    assert _rel(o_r, o_o) < INT8_REL
+    assert torch.equal(ops.int8_matmul(xt, torch.from_numpy(wq),
+                                       torch.from_numpy(ws)), o_t)
+    x3 = xt.reshape(1, M, K)                       # leading dims kept
+    assert im.plain(x3, torch.from_numpy(wq),
+                    torch.from_numpy(ws)).shape == (1, M, N)
+
+
 # -- dispatch ---------------------------------------------------------------
 
 def test_kernels_refuse_cpu_tensors():
@@ -297,10 +411,20 @@ def test_kernels_refuse_cpu_tensors():
     probs = torch.full((3, 8), 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         sv.spec_accept(toks, probs[:2], probs, torch.zeros(2))
+    r = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        rs.rwkv6_scan(r, r, r, r, torch.zeros((2, 16)),
+                      torch.zeros((1, 2, 16, 16)), chunk=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        im.int8_matmul(torch.zeros((2, 8)), torch.zeros((8, 4),
+                                                        dtype=torch.int8),
+                       torch.ones(4))
     assert fa.flash_attention.launches == 0
     assert da.paged_decode_attention.launches == 0
     assert da.decode_attention.launches == 0
     assert sv.spec_accept.launches == 0
+    assert rs.rwkv6_scan.launches == 0
+    assert im.int8_matmul.launches == 0
 
 
 def test_ops_dispatch_cpu_to_plain_and_domain():
