@@ -13,7 +13,9 @@ the result line):
                at the main path's shapes, with the tolerance, and its time
                beside the plain version's, the library call's and the bound
                (``int8_matmul``, which no model calls, at rwkv6-7b's
-               channel-mix shapes)
+               channel-mix shapes); times by CUDA events over calls queued
+               behind a sleep kernel, and for flash, dense decode and their
+               SDPA yardsticks also the profiler's device time
   4. paths   : each path driven with every launch count set to 0 just
                before it and read just after; llama-1.5b at full width
                (bf16, random weights from seeds 0 and 1):
@@ -94,17 +96,52 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
+    """Card time per call of ``fn`` run back to back, by CUDA events.  The
+    calls are queued behind a sleep kernel that outlasts their enqueueing,
+    so the events time the card and not the host, whose Python around a
+    short kernel can take longer than the kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    # cycles at up to 2 GHz: 4x the host's enqueue time of the run, 2 ms+
+    torch.cuda._sleep(int(2e9 * min(4 * iters * host_s + 2e-3, 1.0)))
     a.record()
     for _ in range(iters):
         fn()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters=40) -> tuple[float, list[str]]:
+    """The profiler's device time per call of ``fn`` over ``iters`` calls:
+    the time in which at least one of its kernels ran (the union of the
+    kernels' intervals, since a dependent launch overlaps the kernel
+    before it), over ``iters``; and those kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end)
+                         for e in evs):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    names = sorted({e.name.replace("(anonymous namespace)::", "")
+                    .removeprefix("void ").split("<")[0].split("(")[0][:48]
+                    for e in evs})
+    return busy / 1e3 / iters, names
 
 
 def bound(flops: float, nbytes: float,
@@ -189,9 +226,16 @@ def check_flash(fa, gen) -> dict:
             plain_ms = time_ms(lambda: fa.plain(q, k, v, causal=True),
                                iters=5)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib_ms = time_ms(lambda: torch.nn.functional
-                             .scaled_dot_product_attention(
-                                 qt, kt, vt, is_causal=True, enable_gqa=True))
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            lib_ms = time_ms(sdpa)
+            dev, names = device_ms(
+                lambda: fa.flash_attention(q, k, v, causal=True))
+            lib_dev, lib_names = device_ms(sdpa)
+            if not torch.equal(o, fa.flash_attention(q, k, v, causal=True)):
+                raise AssertionError("flash: a second call gave other bits")
             pairs = S * (S + 1) / 2
             flops = 4 * B * H * D * pairs
             nbytes = 2 * B * S * D * (2 * H + 2 * KV)
@@ -201,10 +245,14 @@ def check_flash(fa, gen) -> dict:
                               "flash_attention.cu",
                        replaces="src/repro/kernels/flash_attention.py:89",
                        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=lib_ms)
+                       library_ms=lib_ms, device_ms=dev,
+                       library_device_ms=lib_dev)
             line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-                     f"{flops / ms / 1e9:.1f} TFLOP/s")
+                     f"{flops / ms / 1e9:.1f} TFLOP/s; bit-equal on a "
+                     f"second call\nflash S={S} profiler device time per "
+                     f"call: kernel {dev:.4f} ms {names}, sdpa {lib_dev:.4f}"
+                     f" ms {lib_names}")
         log(line)
     row["max_abs_err"] = worst
     return row
@@ -353,12 +401,14 @@ def check_decode(da, gen) -> dict:
     ap = torch.where(torch.arange(Sc, device="cuda")[None] <= pos[:, None],
                      torch.arange(Sc, device="cuda", dtype=torch.int32)[None],
                      -1).to(torch.int32)
-    err, frac = row_err(da.decode_attention(q, *caches[0], ap, pos),
-                        da.plain(q, *caches[0], ap, pos), slice(0, B))
+    o = da.decode_attention(q, *caches[0], ap, pos)
+    err, frac = row_err(o, da.plain(q, *caches[0], ap, pos), slice(0, B))
     worst = max(worst, err)
     if frac > 1.0:
         raise AssertionError(f"decode timed case: max_abs_err {err} at "
                              f"{frac:.2f} x its row's limit")
+    if not torch.equal(o, da.decode_attention(q, *caches[0], ap, pos)):
+        raise AssertionError("decode: a second call gave other bits")
     it = iter(range(1 << 30))
 
     def kern():
@@ -372,8 +422,13 @@ def check_decode(da, gen) -> dict:
     kt, vt = (c.transpose(1, 2).contiguous() for c in caches[0])
     qt = q.transpose(1, 2).contiguous()
     mask = (ap >= 0)[:, None, None, :]
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=40)
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_ms = time_ms(sdpa, iters=40)
+    dev, names = device_ms(kern)
+    lib_dev, lib_names = device_ms(sdpa)
     valid = sum(int(p) + 1 for p in pos.tolist())
     kv_bytes = 2 * valid * KV * D * 2
     nbytes = kv_bytes + valid * 4 + 2 * B * H * D * 2 + B * 4
@@ -383,11 +438,18 @@ def check_decode(da, gen) -> dict:
         f"max_abs_err={err:.3e} ({frac:.2f} x its row's limit), kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
         f"{kv_bytes / 1e6:.1f} MB of K+V), {nbytes / ms / 1e6:.1f} GB/s")
+    log(f"decode_attention timed: bit-equal on a second call; split over "
+        f"{(Sc + da.CHUNK - 1) // da.CHUNK} chunks of {da.CHUNK} slots, "
+        f"{KV * B * ((Sc + da.CHUNK - 1) // da.CHUNK)} CTAs a launch; profiler "
+        f"device "
+        f"time per call: kernel {dev:.4f} ms {names}, sdpa {lib_dev:.4f} ms "
+        f"{lib_names}")
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:81",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, device_ms=dev,
+                library_device_ms=lib_dev)
 
 
 def _spec_case(kind, g, V, gen):

@@ -12,6 +12,7 @@ have no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -94,3 +95,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if needed."""
     lib = _libs.get(name)
     return lib if lib is not None else build_all((name,))[name]
+
+
+def on_device(t):
+    """The context to launch a kernel on ``t``'s card in: none when that
+    card is already current (the wrapper's per-call host cost)."""
+    import torch
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import decode_attend, paged_decode_attend
+from repro_torch.kernels.ref import NEG_INF, decode_attend, paged_decode_attend
 
 NAME = "decode_attention"
 PAGED_NAME = "paged_decode_attention"
@@ -26,19 +26,32 @@ HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8          # query heads per kv head the kernels take
 MAX_PAGE_SIZE = 32
+CHUNK = 128            # slots per CTA of the dense split (csrc CHUNK)
+_fns: dict = {}       # launcher symbol -> bound ctypes function
 
 
-def _bind(name: str, symbol: str, n_ints: int):
-    """The launcher ``symbol``: six pointers, ``n_ints`` ints, softcap,
-    scale, stream."""
-    lib = build.load(name)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
+def _bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The launcher ``symbol``: ``n_ptrs`` pointers, ``n_ints`` ints,
+    softcap, scale, stream; bound once."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(build.load(name), symbol)
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 6 + [I] * n_ints + [ctypes.c_float,
-                                                ctypes.c_float, P]
+        fn.argtypes = [P] * n_ptrs + [I] * n_ints + [ctypes.c_float,
+                                                     ctypes.c_float, P]
         fn.restype = I
+        _fns[symbol] = fn
     return fn
+
+
+def _scratch_floats(B: int, Sc: int, KV: int, G: int, D: int) -> int:
+    fn = _fns.get("decode_attention_scratch")
+    if fn is None:
+        fn = build.load(NAME).decode_attention_scratch
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
+        _fns["decode_attention_scratch"] = fn
+    return fn(B, Sc, KV, G, D)
 
 
 def _check_tensors(kernel: str, tensors, ints):
@@ -48,6 +61,8 @@ def _check_tensors(kernel: str, tensors, ints):
                              f"on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:       # rows are read as 16-byte vectors
+            raise ValueError(f"{name} must be 16-byte aligned")
     if len({t.device for _, t in tensors}) != 1:
         raise ValueError("inputs on different devices")
     q, k, v = (t for _, t in tensors[:3])
@@ -85,18 +100,21 @@ def decode_attention(q, k_cache, v_cache, abs_pos, positions, *, window=0,
     """q: (B,1,H,D); caches: (B, Sc, KV, D) read in place; abs_pos:
     (B, Sc) int32 absolute position of each slot (-1 = empty); positions:
     (B,) int32.  Returns (B,1,H,D); a row with no valid slot is exactly 0.
-    Same signature as the Pallas kernel."""
+    Same signature as the Pallas kernel.  One call launches the split's
+    three kernels (scores, P V, combine); it counts once."""
     _check(q, k_cache, v_cache, abs_pos, positions)
-    fn = _bind(NAME, "decode_attention_launch", 7)
+    fn = _bind(NAME, "decode_attention_launch", 7, 7)
     B, _, H, D = q.shape
     Sc, KV = k_cache.shape[1], k_cache.shape[2]
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    part = torch.empty(_scratch_floats(B, Sc, KV, H // KV, D),
+                       dtype=torch.float32, device=q.device)
+    with build.on_device(q):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  abs_pos.data_ptr(), positions.data_ptr(), o.data_ptr(),
-                 B, Sc, KV, H // KV, D, DTYPES[q.dtype], int(window),
-                 float(softcap), float(D ** -0.5), stream)
+                 part.data_ptr(), B, Sc, KV, H // KV, D, DTYPES[q.dtype],
+                 int(window), float(softcap), float(D ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     decode_attention.launches += 1
@@ -111,6 +129,55 @@ def plain(q, k_cache, v_cache, abs_pos, positions, *, window=0,
     """The plain PyTorch version of ``decode_attention``."""
     return decode_attend(q, k_cache, v_cache, abs_pos, positions,
                          window=window, softcap=softcap)
+
+
+def split_plain(q, k_cache, v_cache, abs_pos, positions, *, window=0,
+                softcap=0.0, chunk=CHUNK):
+    """The split kernel's arithmetic in plain PyTorch, for the tests only:
+    the slots cut into chunks of ``chunk`` (the walk stops at pos with no
+    window); each chunk's max m and l = sum of exp(s - m) over its valid
+    slots; the chunks' (m, l) merged into the row's M and
+    L = sum of l e^(m - M) (chunks with l = 0 skipped); each chunk's
+    acc = sum of (exp(s - M) / L rounded to v.dtype) V; and the output,
+    the sum of the chunks' acc in chunk order.  A row with no valid slot
+    is exactly 0.  Same signature as ``decode_attention``."""
+    B, _, H, D = q.shape
+    Sc, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D).float()
+    pos = positions.long()[:, None]
+    ap = abs_pos.long()
+    valid = (ap >= 0) & (ap <= pos)
+    if window:
+        valid &= ap > pos - window
+    else:
+        valid &= torch.arange(Sc, device=q.device)[None] <= pos
+    chunks = []
+    for c0 in range(0, Sc, chunk):
+        sl = slice(c0, min(Sc, c0 + chunk))
+        s = torch.einsum("bhgd,bshd->bhgs", qg,
+                         k_cache[:, sl].float()) * D ** -0.5
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        ok = valid[:, None, None, sl]
+        s = torch.where(ok, s, NEG_INF)
+        m = s.amax(-1)
+        l = torch.where(ok, torch.exp(s - m[..., None]), 0.0).sum(-1)
+        chunks.append((sl, s, ok, m, l))
+    M = torch.full((B, KV, G), NEG_INF, device=q.device)
+    for *_, m, l in chunks:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    L = torch.zeros_like(M)
+    for *_, m, l in chunks:
+        L = L + torch.where(l > 0, l * torch.exp(m - M), 0.0)
+    o = torch.zeros((B, KV, G, D), device=q.device)
+    for sl, s, ok, m, l in chunks:
+        p = torch.where(ok, torch.exp(s - M[..., None])
+                        / L.clamp(min=1e-30)[..., None], 0.0)
+        acc = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                           v_cache[:, sl].float())
+        o = o + torch.where((l > 0)[..., None], acc, 0.0)
+    return o.reshape(B, 1, H, D).to(q.dtype)
 
 
 def _check_paged(q, k_pool, v_pool, page_table, positions):
@@ -137,11 +204,11 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *,
     page_table: (B, NP) int32 (-1 = unmapped); positions: (B,) int32.
     Returns (B,1,H,D); a row with no live page is exactly 0."""
     _check_paged(q, k_pool, v_pool, page_table, positions)
-    fn = _bind(PAGED_NAME, "paged_decode_attention_launch", 8)
+    fn = _bind(PAGED_NAME, "paged_decode_attention_launch", 6, 8)
     B, _, H, D = q.shape
     ps, KV = k_pool.shape[1], k_pool.shape[2]
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with build.on_device(q):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), positions.data_ptr(), o.data_ptr(),

@@ -20,15 +20,19 @@ NAME = "flash_attention"
 HEAD_DIMS = (64, 128)
 
 
+_fn = None
+
+
 def _bind():
-    lib = build.load(NAME)
-    fn = lib.flash_attention_launch
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        fn = build.load(NAME).flash_attention_launch
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I, P, I, I,
                        ctypes.c_float, ctypes.c_float, P]
         fn.restype = I
-    return fn
+        _fn = fn
+    return _fn
 
 
 def _check(q, k, v):
@@ -42,8 +46,8 @@ def _check(q, k, v):
         if t.ndim != 4:
             raise ValueError(f"{name} must be (B, S, heads, D), got "
                              f"{tuple(t.shape)}")
-        # rows are read as 16-byte vectors: unit inner stride, 8-element
-        # aligned outer strides and a 16-byte aligned base
+        # rows are copied by TMA: unit inner stride, 16-byte multiples
+        # for the outer strides and a 16-byte aligned base
         if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "
@@ -69,14 +73,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    with torch.cuda.device(q.device):
+    with build.on_device(q):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, Sq, Skv, H, KV, D, ctypes.cast(strides, ctypes.c_void_p),
                  int(bool(causal)), int(window), float(softcap),
                  float(D ** -0.5), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err}"
+                           + (" (tensor map refused)" if err == -2 else ""))
     flash_attention.launches += 1
     return o
 

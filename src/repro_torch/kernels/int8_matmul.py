@@ -64,7 +64,7 @@ def int8_matmul(x, w_q, w_scale):
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
-        with torch.cuda.device(x.device):
+        with build.on_device(x):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(x2.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                      out.data_ptr(), M, N, K,

@@ -90,7 +90,7 @@ def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
     stateT = torch.empty_like(state0)
     strides = (ctypes.c_longlong * 12)(*r.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *w.stride()[:3])
-    with torch.cuda.device(r.device):
+    with build.on_device(r):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), state0.data_ptr(), out.data_ptr(),

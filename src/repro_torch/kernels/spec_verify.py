@@ -74,7 +74,7 @@ def spec_accept(draft_tokens, draft_probs, target_probs, u):
     g, V = draft_probs.shape
     n = torch.empty((), dtype=torch.int32, device=u.device)
     dist = torch.empty((V,), dtype=torch.float32, device=u.device)
-    with torch.cuda.device(u.device):
+    with build.on_device(u):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(draft_tokens.data_ptr(), draft_probs.data_ptr(),
                  target_probs.data_ptr(), u.data_ptr(), n.data_ptr(),

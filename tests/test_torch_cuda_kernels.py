@@ -38,10 +38,12 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [37, 64, 200, 512])
+@pytest.mark.parametrize("S", [37, 64, 128, 129, 200, 512, 1024, 2048])
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("D,H,KV", [(128, 16, 8), (64, 8, 2)])
 def test_flash_kernel_matches_plain(cuda, S, mode, D, H, KV):
+    """Every mode at the engine's prompt lengths and the edges of the
+    128-row query and key tiles."""
     gen = torch.Generator(cuda).manual_seed(S)
     q, k, v = (torch.randn((2, S, n, D), generator=gen, device=cuda,
                            dtype=torch.bfloat16) for n in (H, KV, KV))
@@ -49,6 +51,35 @@ def test_flash_kernel_matches_plain(cuda, S, mode, D, H, KV):
     o = fa.flash_attention(q, k, v, **kw)
     assert float((o.float() - fa.plain(q, k, v, **kw).float()).abs().max()) \
         < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+def test_flash_kernel_is_deterministic(cuda, mode):
+    """No split of a row's keys across CTAs, no atomics: the same inputs
+    give the same bits."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    q, k, v = (torch.randn((1, 1536, n, 128), generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for n in (16, 8, 8))
+    kw = MODES[mode]
+    assert torch.equal(fa.flash_attention(q, k, v, **kw),
+                       fa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_reads_strided_views(cuda, D):
+    """q, k, v as head slices of one fused (B, S, H + 2 KV, D) tensor are
+    read in place through their strides."""
+    gen = torch.Generator(cuda).manual_seed(D)
+    H, KV = 8, 2
+    qkv = torch.randn((2, 300, H + 2 * KV, D), generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    o = fa.flash_attention(q, k, v)
+    ref = fa.plain(q.contiguous(), k.contiguous(), v.contiguous())
+    assert float((o.float() - ref.float()).abs().max()) < 2e-2
 
 
 @pytest.mark.cuda
@@ -196,6 +227,85 @@ def test_dense_decode_kernel_matches_plain(cuda, dtype, mode, D, H, KV):
     t = 2e-2 if dtype == torch.bfloat16 else 2e-5
     assert float((o[:3].float() - o_ref[:3].float()).abs().max()) < t
     assert float(o[3].abs().max()) == 0.0
+
+
+def _decode_rows(cuda, B, Sc, KV, H, D, dtype, seed):
+    """q and caches on the card: (q, k_cache, v_cache)."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda, dtype=dtype)
+    return (q, *_dense(cuda, B, Sc, KV, D, dtype, seed + 1))
+
+
+def _global_ap(cuda, Sc, pos):
+    """abs_pos of a global cache filled up to each row's position."""
+    slot = torch.arange(Sc, device=cuda, dtype=torch.int32)[None]
+    return torch.where(slot <= pos[:, None], slot, -1).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chunk_last", "chunk_first", "ragged_sc",
+                                  "ring_256", "g8_f32"])
+def test_dense_decode_split_edges(cuda, case):
+    """Positions on the last slot of a chunk and the first of the next, a
+    cache length that is not a multiple of the chunk, a 256-slot window
+    ring, and G=8 in f32; row 3 has no valid slot and must be exactly 0.
+    Held per row to 4 bf16 ulps of the row's max |ref| (bf16) or 2e-5
+    (f32), and to the plain split arithmetic at the same tolerance."""
+    C = da.CHUNK
+    B, H, KV, D, Sc, dtype, kw = 4, 16, 8, 128, 2048, torch.bfloat16, {}
+    if case == "chunk_last":
+        pos = [C - 1, 2 * C - 1, 5 * C - 1, 0]
+    elif case == "chunk_first":
+        pos = [C, 2 * C, 7 * C, 0]
+    elif case == "ragged_sc":
+        Sc, pos = 3 * C + 44, [3 * C + 43, 3 * C, C + 5, 0]
+    elif case == "ring_256":
+        Sc, kw, pos = 256, dict(window=256), [700, 1000, 100, 0]
+    else:
+        H, KV, dtype, pos = 16, 2, torch.float32, [C - 1, C, 1500, 0]
+    q, kc, vc = _decode_rows(cuda, B, Sc, KV, H, D, dtype, Sc)
+    pos_t = torch.tensor(pos, device=cuda, dtype=torch.int32)
+    if case == "ring_256":
+        slot = torch.arange(Sc, device=cuda)[None]
+        p = pos_t[:, None] - ((pos_t[:, None] - slot) % Sc)
+        ap = torch.where(p >= 0, p, -1).to(torch.int32)
+    else:
+        ap = _global_ap(cuda, Sc, pos_t)
+    ap[3] = -1                                        # the empty row
+    o = da.decode_attention(q, kc, vc, ap, pos_t, **kw)
+    ref = da.plain(q, kc, vc, ap, pos_t, **kw)
+    split = da.split_plain(q, kc, vc, ap, pos_t, **kw)
+    if dtype == torch.bfloat16:
+        top = ref[:3].float().abs().flatten(1).amax(1)
+        tol = 4 * torch.exp2(torch.floor(torch.log2(top)) - 7)
+    else:
+        tol = torch.full((3,), 2e-5, device=cuda)
+    for want in (ref, split):
+        e = (o[:3].float() - want[:3].float()).abs().flatten(1).amax(1)
+        assert bool((e <= tol).all()), (case, e.tolist(), tol.tolist())
+    assert float(o[3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_is_deterministic_and_rows_independent(cuda, dtype):
+    """Fixed-order combine with no atomics: two calls give the same bits,
+    and row 0's output does not move when another row's cache and
+    position change."""
+    B, H, KV, D, Sc = 4, 16, 8, 128, 2048
+    q, kc, vc = _decode_rows(cuda, B, Sc, KV, H, D, dtype, 5)
+    pos = torch.tensor([60, 530, 1050, 1560], device=cuda, dtype=torch.int32)
+    ap = _global_ap(cuda, Sc, pos)
+    o = da.decode_attention(q, kc, vc, ap, pos)
+    assert torch.equal(o, da.decode_attention(q, kc, vc, ap, pos))
+    kc2, vc2, ap2, pos2 = kc.clone(), vc.clone(), ap.clone(), pos.clone()
+    kc2[1:] = torch.randn_like(kc2[1:])
+    vc2[2] *= 3
+    pos2[1:] = torch.tensor([2047, 7, 300], device=cuda, dtype=torch.int32)
+    ap2[1:] = _global_ap(cuda, Sc, pos2)[1:]
+    o2 = da.decode_attention(q, kc2, vc2, ap2, pos2)
+    assert torch.equal(o[0], o2[0])
+    assert not torch.equal(o[1:], o2[1:])
 
 
 @pytest.mark.cuda

@@ -167,6 +167,78 @@ def test_decode_plain_matches_pallas_interpret(dtype, mode):
                        o_port)                 # CPU tensors -> plain
 
 
+def _split_case(mode, chunk, rng, dtype):
+    """A dense decode case for the split over slots: (q, k, v, abs_pos,
+    positions) as (jax, torch) pairs, kw, the rows that hold a valid slot,
+    and the Pallas block size.  Rows end on the last slot of a chunk and
+    the first slot of the next, and at the last slot of a cache whose
+    length (200) is not a multiple of the chunk; ``holes`` empties whole
+    chunks inside rows; ``empty_row`` leaves row 3 with no valid slot;
+    ``window`` is a 64-slot ring buffer."""
+    B, H, KV, D = 4, 8, 2, 64
+    kw, live = {}, [0, 1, 2, 3]
+    if mode == "window":
+        Sc, block = 64, 32
+        kw = dict(window=64)
+        pos = np.asarray([100, 63, 10, 200], np.int32)
+        slot = np.arange(Sc)[None]
+        p = pos[:, None] - ((pos[:, None] - slot) % Sc)
+        ap = np.where(p >= 0, p, -1).astype(np.int32)
+    else:
+        Sc, block = 200, 40
+        slot = np.arange(Sc)[None]
+        pos = np.asarray([chunk - 1, chunk, Sc - 1, 50], np.int32)
+        held = np.minimum(pos + 4, Sc)              # rolled-back slots
+        ap = np.where(slot < held[:, None], slot, -1).astype(np.int32)
+        if mode == "holes":
+            ap[1, :chunk] = -1                      # chunk 0 empty
+            ap[2, chunk:2 * chunk] = -1             # a middle chunk empty
+            ap[3, 5:45:3] = -1
+        elif mode == "empty_row":
+            ap[3] = -1
+            live = [0, 1, 2]
+        elif mode == "softcap":
+            kw = dict(softcap=20.0)
+    q, k, v = (both(rng.standard_normal(s).astype(np.float32), dtype)
+               for s in ((B, 1, H, D), (B, Sc, KV, D), (B, Sc, KV, D)))
+    return (q, k, v, (jnp.asarray(ap), torch.from_numpy(ap)),
+            (jnp.asarray(pos), torch.from_numpy(pos)), kw, live, block)
+
+
+@pytest.mark.parametrize("chunk", [32, da.CHUNK])
+@pytest.mark.parametrize("mode", ["fill", "holes", "empty_row", "window",
+                                  "softcap"])
+def test_decode_split_plain_matches_plain_and_pallas(mode, chunk):
+    """The dense kernel's split over slots (per-chunk m and l merged in
+    chunk order, normalised p per chunk, the chunks' P V summed in chunk
+    order), in plain PyTorch, against the plain version and the Pallas
+    kernel (interpret mode) in f32; a row with no valid slot is exactly
+    0."""
+    (qj, qt), (kj, kt), (vj, vt), (aj, at), (pj, pt), kw, live, block = \
+        _split_case(mode, chunk, np.random.default_rng(21), "float32")
+    o = da.split_plain(qt, kt, vt, at, pt, chunk=chunk, **kw)
+    o_plain = da.plain(qt, kt, vt, at, pt, **kw)
+    o_pallas = jax_decode(qj, kj, vj, aj, pj, block_k=block, interpret=True,
+                          **kw)
+    assert o.dtype == torch.float32 and o.shape == qt.shape
+    assert float((o[live] - o_plain[live]).abs().max()) < 2e-5
+    assert err(np.asarray(o_pallas)[live], o[live]) < 2e-5
+    dead = [b for b in range(4) if b not in live]
+    assert all(float(o[b].abs().max()) == 0.0 for b in dead)
+
+
+@pytest.mark.parametrize("mode", ["fill", "holes", "window", "softcap"])
+def test_decode_split_plain_bf16_matches_plain(mode):
+    """bf16 caches: normalised p rounded to bf16, as the kernel and the
+    reference do."""
+    (_, qt), (_, kt), (_, vt), (_, at), (_, pt), kw, live, _ = _split_case(
+        mode, 32, np.random.default_rng(22), "bfloat16")
+    o = da.split_plain(qt, kt, vt, at, pt, chunk=32, **kw)
+    assert o.dtype == torch.bfloat16
+    assert float((o[live].float() - da.plain(qt, kt, vt, at, pt, **kw)[
+        live].float()).abs().max()) < 2e-2
+
+
 def _accept_case(rng, g, V, kind):
     """(tokens, q, p, u) as numpy.  ``random``: drafts drawn from q;
     ``greedy``: one-hot q and p agreeing on a prefix (g = 1: full
