@@ -13,9 +13,11 @@ the result line):
                at the main path's shapes, with the tolerance, and its time
                beside the plain version's, the library call's and the bound
                (``int8_matmul``, which no model calls, at rwkv6-7b's
-               channel-mix shapes); times by CUDA events over calls queued
-               behind a sleep kernel, and for flash, dense decode and their
-               SDPA yardsticks also the profiler's device time
+               channel-mix shapes wk and wv at M = 4 and 1536, each on the
+               design its shape routes to); times by CUDA events over
+               calls queued behind a sleep kernel, and for flash, dense
+               decode, int8_matmul and their library yardsticks also the
+               profiler's device time
   4. paths   : each path driven with every launch count set to 0 just
                before it and read just after; llama-1.5b at full width
                (bf16, random weights from seeds 0 and 1):
@@ -614,52 +616,106 @@ def _int8_case(M, K, N, dtype, gen):
     return x, wq, ws
 
 
+def int8_build_lines(log_text: str) -> list[str]:
+    """Registers and spills of each int8_matmul kernel, from ptxas -v,
+    by kernel and template arguments (e.g. ``wgmma_kernel<256>``)."""
+    import re
+    lines, fn = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"(wgmma_kernel|splitk_kernel|splitk_combine|"
+                      r"int8_matmul_kernel)I(.*?)EEv", ln)
+        if "Compiling entry function" in ln and m:
+            args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a[2:-1])
+                    for a in re.findall(r"13__nv_bfloat16|Li\d+E|f",
+                                        m.group(2) + "E")]
+            fn = f"{m.group(1)}<{','.join(args)}>"
+        elif fn and ("registers" in ln or "spill" in ln):
+            lines.append(f"{fn}: {ln.strip()}")
+    return lines
+
+
 def check_int8(im, gen) -> dict:
     """int8_matmul against its plain version at rwkv6-7b's channel-mix
-    shapes, wk (4096 -> 14336) and wv (14336 -> 4096), at M = 4 (decode)
-    and M = 1536 (prefill), bf16 x, plus one f32-x case: within 5e-3 of
-    max |plain|.  Timed at both M on wk, beside the library call it
-    stands for (a bf16 matmul of the dequantised weights, scaled)."""
+    shapes, wk (4096 -> 14336) and wv (14336 -> 4096), at M = 4 (decode,
+    the splitk design) and M = 1536 (prefill, the wgmma design), bf16 x,
+    plus f32-x cases: within 5e-3 of max |plain|, bit-equal on a second
+    call, each on the design its shape routes to.  All four bf16 shapes
+    are timed beside the library call the kernel stands for (a bf16
+    matmul of the dequantised weights, scaled), with the profiler's
+    device time of both."""
+    from repro_torch.kernels import build
+    for ln in int8_build_lines(build.logs.get("int8_matmul", "")):
+        log(f"int8_matmul build: {ln}")
     worst = worst_rel = 0.0
-    timed = {}
-    cases = [(M, K, N, torch.bfloat16) for M in (4, 1536)
-             for K, N in ((4096, 14336), (14336, 4096))]
-    cases.append((4, 4096, 14336, torch.float32))
-    for M, K, N, dtype in cases:
+    timed, designs = {}, {}
+    shapes = {"wk": (4096, 14336), "wv": (14336, 4096)}
+    want = {4: "splitk", 1536: "wgmma"}
+    cases = [(M, sh, torch.bfloat16) for M in (4, 1536) for sh in shapes]
+    cases += [(4, "wk", torch.float32), (1536, "wv", torch.float32)]
+    for M, sh, dtype in cases:
+        K, N = shapes[sh]
         x, wq, ws = _int8_case(M, K, N, dtype, gen)
+        before = dict(im.int8_matmul.routes)
         o = im.int8_matmul(x, wq, ws)
+        ran = [r for r, n in im.int8_matmul.routes.items() if n > before[r]]
         ref = im.plain(x, wq, ws)
         torch.cuda.synchronize()
         err = max_err(o, ref)
         rel = err / float(ref.float().abs().max())
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        design = im.route(M, N, K, dtype, True)
+        if dtype == torch.bfloat16 and design != want[M]:
+            raise AssertionError(f"int8_matmul {sh} M={M}: routed to "
+                                 f"{design}, not {want[M]}")
+        if ran != [design]:
+            raise AssertionError(f"int8_matmul {sh} M={M}: launched {ran}, "
+                                 f"route says {design}")
         if not torch.isfinite(o.float()).all() or o.dtype != dtype \
                 or rel > INT8_REL:
-            raise AssertionError(f"int8_matmul M={M} K={K} N={N} {dtype}: "
+            raise AssertionError(f"int8_matmul {sh} M={M} {dtype}: "
                                  f"rel err {rel} > {INT8_REL}")
-        line = (f"int8_matmul M={M} K={K} N={N} x {str(dtype)[6:]}: "
-                f"max_abs_err / max |plain| = {rel:.3e} (tol {INT8_REL})")
-        if (K, N, dtype) == (4096, 14336, torch.bfloat16):
-            ms = time_ms(lambda: im.int8_matmul(x, wq, ws), iters=20)
+        if not torch.equal(o, im.int8_matmul(x, wq, ws)):
+            raise AssertionError(f"int8_matmul {sh} M={M} {dtype} "
+                                 f"({design}): a second call gave other "
+                                 "bits")
+        line = (f"int8_matmul {sh} M={M} K={K} N={N} x {str(dtype)[6:]}: "
+                f"design {design}, max_abs_err / max |plain| = {rel:.3e} "
+                f"(tol {INT8_REL}), bit-equal on a second call")
+        if dtype == torch.bfloat16:
+            def kern():
+                return im.int8_matmul(x, wq, ws)
+
+            def lib():
+                return torch.matmul(x, wq.to(torch.bfloat16)) * ws
+
+            ms = time_ms(kern, iters=20)
             plain_ms = time_ms(lambda: im.plain(x, wq, ws), iters=5)
-            lib_ms = time_ms(lambda: torch.matmul(
-                x, wq.to(torch.bfloat16)) * ws, iters=20)
+            lib_ms = time_ms(lib, iters=20)
+            dev, names = device_ms(kern)
+            lib_dev, lib_names = device_ms(lib)
             flops = 2 * M * K * N
             nbytes = 2 * M * K + K * N + 4 * N + 2 * M * N
             bms, by = bound(flops, nbytes)
-            timed[M] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                            bound_by=by, library_ms=lib_ms)
+            designs[f"{sh}_M{M}"] = design
+            timed[f"{sh}_M{M}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, device_ms=dev, library_device_ms=lib_dev)
             line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
                      f"{flops / ms / 1e9:.1f} TFLOP/s, "
-                     f"{nbytes / ms / 1e6:.1f} GB/s")
+                     f"{nbytes / ms / 1e6:.1f} GB/s\nint8_matmul {sh} M={M} "
+                     f"profiler device time per call: kernel {dev:.4f} ms "
+                     f"{names}, library {lib_dev:.4f} ms {lib_names}")
         log(line)
-    # the row's numbers are decode's (M = 4): W8A16 is a decode-bytes trade
+    # the row's own numbers are decode's on wk (M = 4): W8A16 is a
+    # decode-bytes trade; the other three timed shapes beside them
     return dict(name="int8_matmul", route="cuda",
                 source="src/repro_torch/kernels/csrc/int8_matmul.cu",
                 replaces="src/repro/kernels/int8_matmul.py:42",
-                max_abs_err=worst, max_rel_err=worst_rel, **timed[4],
-                prefill_M1536=timed[1536])
+                max_abs_err=worst, max_rel_err=worst_rel, **timed["wk_M4"],
+                designs=designs,
+                prefill_M1536=timed["wk_M1536"], wv_M4=timed["wv_M4"],
+                wv_M1536=timed["wv_M1536"])
 
 
 # ---------------------------------------------------------------------------
@@ -1293,6 +1349,8 @@ def main() -> int:
     log(f"build: {len(build.KERNELS)} kernels in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process each)")
     for name, text in build.logs.items():
+        if name == "int8_matmul":
+            continue      # check_int8 prints them, by kernel
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"build: {name}: {ln.strip()}")

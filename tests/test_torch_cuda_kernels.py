@@ -556,6 +556,69 @@ def test_int8_kernel_dispatch_and_refusals(cuda):
         im.int8_matmul(x, wq.cpu(), ws)
 
 
+# (design, M, K, N, x dtype): rwkv6-7b's channel-mix wk / wv, the ragged
+# edges of each design and the shapes only the general kernel takes
+_WK, _WV = (4096, 14336), (14336, 4096)
+INT8_DESIGNS = (
+    [("wgmma", 1536, *_WK, torch.bfloat16), ("wgmma", 1536, *_WV, torch.bfloat16),
+     ("wgmma", 200, 4104, 4112, torch.bfloat16),     # ragged M, N, K: tile 192
+     ("wgmma", 2000, 4104, 4112, torch.bfloat16),    # ragged M, N, K: tile 256
+     ("wgmma", 33, 64, 16, torch.bfloat16),          # just above the limit
+     ("wgmma", 384, 1024, 2048, torch.bfloat16)]     # whole tiles
+    + [("splitk", M, *kn, dt) for M in (1, 4, 16) for kn in (_WK, _WV)
+       for dt in (torch.bfloat16, torch.float32)]
+    + [("splitk", 32, 4104, 4112, torch.bfloat16), ("splitk", 5, 1, 16,
+                                                     torch.float32),
+       ("splitk", 9, 1000, 128, torch.bfloat16),
+       ("general", 200, 4096, 4096, torch.float32),  # f32 above the limit
+       ("general", 100, 4100, 4096, torch.bfloat16),  # K % 8 != 0
+       ("general", 4, 4096, 4100, torch.bfloat16)])   # N % 16 != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design,M,K,N,dtype", INT8_DESIGNS)
+def test_int8_designs_match_plain_and_repeat(cuda, design, M, K, N, dtype):
+    """Each design against plain within 5e-3 of max |plain|, the same bits
+    on a second call, and the per-route count shows the design ran.  The
+    reference is plain's fp32 product before its cast to x's dtype: a
+    bf16 output then differs by its own rounding, at most half an ulp
+    (under 3.9e-3 of max |plain|), whereas two bf16 results whose fp32
+    sums straddle a rounding boundary differ by a whole ulp, up to 7.8e-3
+    of max |plain| when that max sits low in its binade (the general
+    kernel's (4, 4096, 4100) case does)."""
+    assert im.route(M, N, K, dtype, True) == design
+    gen = torch.Generator(cuda).manual_seed(M * 7 + K + N)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
+    wq = torch.randint(-128, 128, (K, N), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    ws = 0.001 + 0.009 * torch.rand((N,), generator=gen, device=cuda)
+    before = dict(im.int8_matmul.routes)
+    o = im.int8_matmul(x, wq, ws)
+    ran = {r: n - before[r] for r, n in im.int8_matmul.routes.items()}
+    assert ran == {r: int(r == design) for r in im.ROUTES}
+    o_ref = im.plain(x.float(), wq, ws)   # x is rounded to bf16 first
+    assert o.dtype == dtype and o.shape == (M, N)
+    rel = float((o.float() - o_ref).abs().max() / o_ref.abs().max())
+    assert rel < 5e-3
+    assert torch.equal(o, im.int8_matmul(x, wq, ws))
+
+
+@pytest.mark.cuda
+def test_int8_unaligned_x_takes_the_general_kernel(cuda):
+    """A view of x that starts off a 16-byte boundary cannot be read by
+    TMA: the route is general, and the result still matches."""
+    base = torch.randn((300 * 1024 + 1,), device=cuda, dtype=torch.bfloat16)
+    x = base[1:].view(300, 1024)
+    wq = torch.randint(-128, 128, (1024, 256), device=cuda, dtype=torch.int8)
+    ws = torch.rand((256,), device=cuda)
+    n = im.int8_matmul.routes["general"]
+    o = im.int8_matmul(x, wq, ws)
+    assert im.int8_matmul.routes["general"] == n + 1
+    o_ref = im.plain(x, wq, ws)
+    assert float((o.float() - o_ref.float()).abs().max()
+                 / o_ref.float().abs().max()) < 5e-3
+
+
 @pytest.mark.cuda
 def test_tiny_rwkv_engine_on_the_card_runs_the_scan(cuda):
     """A narrow rwkv6 (head dim 64) on the dense Engine: every prefill

@@ -461,6 +461,74 @@ def test_int8_matmul_plain_matches_pallas_interpret(M, K, N, dtype):
                     torch.from_numpy(ws)).shape == (1, M, N)
 
 
+
+# the kernel's route and split plan: pure rules of shape, dtype, alignment
+
+@pytest.mark.parametrize("M,K,N,want", [(4, 4096, 14336, "splitk"),
+                                        (4, 14336, 4096, "splitk"),
+                                        (1536, 4096, 14336, "wgmma"),
+                                        (1536, 14336, 4096, "wgmma")])
+def test_int8_route_of_the_timed_shapes(M, K, N, want):
+    """chip_smoke's timed shapes (rwkv6-7b's channel-mix wk and wv at
+    decode and prefill M) take the designs made for them."""
+    assert im.route(M, N, K, torch.bfloat16, True) == want
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 32, 33, 200, 1536])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_route_domain_is_whole(M, dtype):
+    """Every (dtype, alignment, ragged N / K) has a route, so the kernel
+    takes every shape it took before; the fast routes only where their
+    TMA copies are legal, and wgmma only for bf16 x above the split-K
+    limit."""
+    for N in (16, 17, 70, 4096, 4104, 4112):
+        for K in (1, 8, 33, 4096, 4100, 4104):
+            for aligned in (True, False):
+                r = im.route(M, N, K, dtype, aligned)
+                assert r in im.ROUTES
+                if not aligned or N % 16:
+                    assert r == "general"
+                elif M <= im.SPLITK_MAX_M:
+                    assert r == "splitk"
+                elif dtype == torch.bfloat16 and K % 8 == 0:
+                    assert r == "wgmma"
+                else:
+                    assert r == "general"
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 17, 32])
+@pytest.mark.parametrize("N,K", [(16, 1), (16, 63), (4096, 64), (4112, 4104),
+                                 (14336, 4096), (4096, 14336),
+                                 (128, 100000)])
+def test_int8_split_plan_covers_k_once_in_order(M, N, K):
+    """Split s takes K rows [s chunk, min(K, (s + 1) chunk)): together
+    they cover K once, in order, with no empty split; chunk is whole
+    64-row stages and x's slice fits its shared memory."""
+    splits, chunk = im.split_plan(M, N, K)
+    spans = [(s * chunk, min(K, (s + 1) * chunk)) for s in range(splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == K
+    assert all(lo < hi for lo, hi in spans)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert chunk % im.SK_BK == 0 and 1 <= splits <= 65535
+    rows = 8 if M <= 8 else 16 if M <= 16 else 32
+    assert rows * (2 * chunk + im.SK_XPAD) <= im.SK_X_BYTES
+    # one wave at four CTAs a SM, unless x's slice caps the chunk
+    cols = -(-N // im.SK_BN)
+    if chunk < (im.SK_X_BYTES // rows - im.SK_XPAD) // 2 - im.SK_BK:
+        assert cols * splits <= max(cols, im.SK_CTAS_PER_SM * im.SM_COUNT)
+
+
+def test_int8_route_counts_start_at_zero():
+    """A per-route launch count sits beside the total; CPU calls take
+    the plain version and count nothing."""
+    assert set(im.int8_matmul.routes) == set(im.ROUTES)
+    x = torch.zeros((2, 16))
+    wq = torch.ones((16, 32), dtype=torch.int8)
+    assert torch.equal(ops.int8_matmul(x, wq, torch.ones(32)),
+                       torch.full((2, 32), 0.0))
+    assert sum(im.int8_matmul.routes.values()) == 0
+
+
 # -- dispatch ---------------------------------------------------------------
 
 def test_kernels_refuse_cpu_tensors():
