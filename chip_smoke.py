@@ -16,8 +16,8 @@ the result line):
                channel-mix shapes wk and wv at M = 4 and 1536, each on the
                design its shape routes to); times by CUDA events over
                calls queued behind a sleep kernel, and for flash, dense
-               decode, int8_matmul and their library yardsticks also the
-               profiler's device time
+               decode, rwkv6_scan, int8_matmul and their library
+               yardsticks also the profiler's device time
   4. paths   : each path driven with every launch count set to 0 just
                before it and read just after; llama-1.5b at full width
                (bf16, random weights from seeds 0 and 1):
@@ -546,8 +546,15 @@ def check_rwkv6(rs, gen) -> dict:
     """rwkv6_scan against its plain version at rwkv6-7b's prefill shape
     (B=1, H=64, D=64, chunk 64): T = 1536, and T = 1000 split as
     ``timemix_parallel`` splits it (960 rows, then a 40-row tail carrying
-    the state); output and final state within 5e-4 abs."""
+    the state); output and final state within 5e-4 abs.  At T = 1536 also
+    bit-equal on a second call, timed by events and by the profiler's
+    device time, beside the bound; the 40-row tail call timed alone."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.ref import rwkv6_ref
+    for ln in ptxas_lines(build.logs.get("rwkv6_scan", ""),
+                          "rwkv6_scan_kernel",
+                          {"Lb1E": "tma", "Lb0E": "copies"}):
+        log(f"rwkv6_scan build: {ln}")
     B, H, D = 1, 64, 64
     worst = 0.0
     for T in (1536, 1000):
@@ -587,7 +594,17 @@ def check_rwkv6(rs, gen) -> dict:
     # the timed shape: the main path's longest prefill, one layer's call
     T = 1536
     r, k, v, w, u, s0 = _rwkv_inputs(B, T, H, D, gen)
-    ms = time_ms(lambda: rs.rwkv6_scan(r, k, v, w, u, s0, chunk=64))
+
+    def kern():
+        return rs.rwkv6_scan(r, k, v, w, u, s0, chunk=64)
+    o1, s1 = kern()
+    o2, s2 = kern()
+    if not (torch.equal(o1, o2) and torch.equal(s1, s2)):
+        raise AssertionError("rwkv6_scan: a second call gave other bits")
+    log(f"rwkv6_scan T={T}: bit-equal on a second call (split DV="
+        f"{rs.split(B, H, D)}: {B * H * D // rs.split(B, H, D)} CTAs)")
+    ms = time_ms(kern)
+    dev, names = device_ms(kern)
     plain_ms = time_ms(lambda: rs.plain(r, k, v, w, u, s0, chunk=64),
                        iters=5)
     # fp32 products per chunk of c rows and head: rA S and (kA A_end)^T v
@@ -600,12 +617,21 @@ def check_rwkv6(rs, gen) -> dict:
     log(f"rwkv6_scan timed B={B} T={T} H={H} D={D} chunk 64: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
         f"{flops / 1e9:.2f} GFLOP at the fp32 CUDA-core peak, "
-        f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.2f} TFLOP/s")
+        f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.2f} TFLOP/s, "
+        f"{nbytes / ms / 1e6:.1f} GB/s = {bms / ms:.1%} of the bound's rate"
+        f"\nrwkv6_scan profiler device time per call: {dev:.4f} ms "
+        f"{names}")
+    # the 40-row ragged tail of a 1000-token prefill, carrying a state
+    rt, kt, vt, wt = (a[:, 960:1000] for a in (r, k, v, w))
+    tail_ms = time_ms(lambda: rs.rwkv6_scan(rt, kt, vt, wt, u, s0, chunk=40))
+    log(f"rwkv6_scan ragged tail B={B} T=40 H={H} D={D} chunk 40: kernel "
+        f"{tail_ms:.4f} ms")
     return dict(name="rwkv6_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                 replaces="src/repro/kernels/rwkv6_scan.py:74",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, device_ms=dev,
+                tail_ms=tail_ms)
 
 
 def _int8_case(M, K, N, dtype, gen):
@@ -616,19 +642,19 @@ def _int8_case(M, K, N, dtype, gen):
     return x, wq, ws
 
 
-def int8_build_lines(log_text: str) -> list[str]:
-    """Registers and spills of each int8_matmul kernel, from ptxas -v,
-    by kernel and template arguments (e.g. ``wgmma_kernel<256>``)."""
+def ptxas_lines(log_text: str, kernels: str, arg_names: dict) -> list[str]:
+    """Registers and spills of each kernel whose name matches the regex
+    ``kernels``, from ptxas -v, by kernel and template arguments (e.g.
+    ``wgmma_kernel<256>``)."""
     import re
     lines, fn = [], None
     for ln in log_text.splitlines():
-        m = re.search(r"(wgmma_kernel|splitk_kernel|splitk_combine|"
-                      r"int8_matmul_kernel)I(.*?)EEv", ln)
-        if "Compiling entry function" in ln and m:
-            args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a[2:-1])
-                    for a in re.findall(r"13__nv_bfloat16|Li\d+E|f",
-                                        m.group(2) + "E")]
-            fn = f"{m.group(1)}<{','.join(args)}>"
+        m = re.search(rf"({kernels})I(.*?)EEv", ln)
+        if "Compiling entry function" in ln:
+            args = [arg_names.get(a, a[2:-1])
+                    for a in re.findall(r"13__nv_bfloat16|L[ib]\d+E|f",
+                                        m.group(2) + "E")] if m else []
+            fn = f"{m.group(1)}<{','.join(args)}>" if m else None
         elif fn and ("registers" in ln or "spill" in ln):
             lines.append(f"{fn}: {ln.strip()}")
     return lines
@@ -644,7 +670,10 @@ def check_int8(im, gen) -> dict:
     matmul of the dequantised weights, scaled), with the profiler's
     device time of both."""
     from repro_torch.kernels import build
-    for ln in int8_build_lines(build.logs.get("int8_matmul", "")):
+    for ln in ptxas_lines(build.logs.get("int8_matmul", ""),
+                          "wgmma_kernel|splitk_kernel|splitk_combine|"
+                          "int8_matmul_kernel",
+                          {"13__nv_bfloat16": "bf16", "f": "f32"}):
         log(f"int8_matmul build: {ln}")
     worst = worst_rel = 0.0
     timed, designs = {}, {}
@@ -1349,8 +1378,8 @@ def main() -> int:
     log(f"build: {len(build.KERNELS)} kernels in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process each)")
     for name, text in build.logs.items():
-        if name == "int8_matmul":
-            continue      # check_int8 prints them, by kernel
+        if name in ("int8_matmul", "rwkv6_scan"):
+            continue      # their checks print them, by kernel
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"build: {name}: {ln.strip()}")

@@ -7,6 +7,12 @@ anything else; ``plain`` is the same function in plain PyTorch: a loop
 over chunks with the formulas of the chunk body of
 ``repro/models/rwkv6.py::timemix_parallel``, which the CPU path and the
 on-card comparison use.
+
+The kernel splits each head over blocks of DV value columns, one CTA a
+(batch, head, block); ``split`` picks DV by a pure rule of the shape,
+never from a failed build or launch.  ``aligned`` picks how the
+kernel loads: by TMA where every row of r, k, v and w starts on a
+16-byte boundary, else by 4-byte copies, with the same result.
 """
 
 from __future__ import annotations
@@ -20,6 +26,29 @@ from repro_torch.kernels import build
 NAME = "rwkv6_scan"
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 64
+# value columns a CTA owns (the kernel's DV), by head dim: at D = 64, 32
+# (B = 1, H = 64: 128 CTAs of 16 warps, one an SM); below it, 16
+SPLIT = {16: 16, 32: 16, 64: 32}
+
+
+def split(B: int, H: int, D: int) -> int:
+    """DV, the value columns one CTA owns, for (B, H, D): one per head
+    dim, ``SPLIT[D]``; the kernel source has an instance for each."""
+    if D not in SPLIT or B < 1 or H < 1:
+        raise ValueError(f"no split for B={B} H={H} D={D}")
+    return SPLIT[D]
+
+
+def aligned(r, k, v, w) -> bool:
+    """Whether the kernel may load r, k, v, w by TMA: every pointer
+    16-byte aligned and every (batch, time, head) stride a multiple of 4
+    elements (a size-1 dim's stride is never stepped)."""
+    for t in (r, k, v, w):
+        if t.data_ptr() % 16:
+            return False
+        if any(t.stride(i) % 4 for i in range(3) if t.shape[i] > 1):
+            return False
+    return True
 
 
 def _bind():
@@ -27,7 +56,7 @@ def _bind():
     fn = lib.rwkv6_scan_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, P, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P]
         fn.restype = I
     return fn
 
@@ -86,6 +115,7 @@ def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
     _check(r, k, v, w, u, state0, chunk)
     fn = _bind()
     B, T, H, D = r.shape
+    dv = split(B, H, D)
     out = torch.empty((B, T, H, D), dtype=torch.float32, device=r.device)
     stateT = torch.empty_like(state0)
     strides = (ctypes.c_longlong * 12)(*r.stride()[:3], *k.stride()[:3],
@@ -94,10 +124,13 @@ def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), state0.data_ptr(), out.data_ptr(),
-                 stateT.data_ptr(), B, T, H, D, chunk,
+                 stateT.data_ptr(), B, T, H, D, chunk, dv,
+                 int(aligned(r, k, v, w)),
                  ctypes.cast(strides, ctypes.c_void_p), stream)
     if err != 0:
-        raise RuntimeError(f"rwkv6_scan launch failed: cudaError {err}")
+        what = {-1: "shape refused", -2: "tensor map not encoded"}.get(
+            err, f"cudaError {err}")
+        raise RuntimeError(f"rwkv6_scan launch failed (split {dv}): {what}")
     rwkv6_scan.launches += 1
     return out, stateT
 

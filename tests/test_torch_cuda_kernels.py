@@ -503,6 +503,88 @@ def test_rwkv6_kernel_reads_strided_inputs_and_refuses(cuda):
     assert rs.rwkv6_scan.launches == n + 1
 
 
+def _rwkv_err(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_is_deterministic(cuda):
+    """Fixed orders, no atomics: a second call gives the same bits."""
+    a = _rwkv(cuda, 1, 256, 64, 64, 5, -6.0)
+    o1, s1 = rs.rwkv6_scan(*a, chunk=64)
+    o2, s2 = rs.rwkv6_scan(*a, chunk=64)
+    assert torch.equal(o1, o2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["sweep", "floor"])
+@pytest.mark.parametrize("runs", [[(64, 1536)], [(64, 960), (40, 40)]],
+                         ids=["T1536", "T1000"])
+def test_rwkv6_kernel_at_the_rwkv6_7b_prefill(cuda, runs, decay):
+    """rwkv6-7b's heads (B=1, H=64, D=64, split 32) at T=1536, and T=1000
+    split as timemix_parallel splits it (960 rows, then a 40-row tail
+    carrying the state), against plain within 5e-4."""
+    T = sum(n for _, n in runs)
+    assert rs.split(1, 64, 64) == 32
+    a = _rwkv(cuda, 1, T, 64, 64, T, -6.0 if decay == "floor" else None)
+    r, k, v, w, u, s0 = a
+    outs = []
+    for fn in (rs.rwkv6_scan, rs.plain):
+        s, ys, t0 = s0, [], 0
+        for c, n in runs:
+            y, s = fn(r[:, t0:t0 + n], k[:, t0:t0 + n], v[:, t0:t0 + n],
+                      w[:, t0:t0 + n], u, s, chunk=c)
+            ys.append(y)
+            t0 += n
+        outs.append((torch.cat(ys, 1), s))
+    assert torch.isfinite(outs[0][0]).all()
+    assert _rwkv_err(outs[0], outs[1]) < 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(2, 64), (3, 64)])
+def test_rwkv6_kernel_past_one_wave(cuda, B, H):
+    """More CTAs than one wave of the card holds (256 and 384 CTAs at
+    split 32, one a SM: two and three waves)."""
+    a = _rwkv(cuda, B, 192, H, 64, B)
+    assert _rwkv_err(rs.rwkv6_scan(*a, chunk=64),
+                     rs.plain(*a, chunk=64)) < 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_rwkv6_kernel_at_the_train_chunk(cuda, D):
+    """Chunk 8, the train mode's (models/layers.py): one 16-row tile with
+    8 pad rows, 24 chunks."""
+    a = _rwkv(cuda, 2, 192, 4, D, D, -6.0)
+    assert _rwkv_err(rs.rwkv6_scan(*a, chunk=8), rs.plain(*a, chunk=8)) \
+        < 5e-4
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_reads_unaligned_inputs(cuda):
+    """r 4 bytes off a 16-byte boundary: the kernel loads by 4-byte
+    copies instead of 16-byte bulk rows, with the same result."""
+    a = _rwkv(cuda, 2, 128, 3, 64, 7)
+    r = torch.empty(a[0].numel() + 1, device=cuda)[1:].view(a[0].shape)
+    r.copy_(a[0])
+    assert r.data_ptr() % 16 == 4
+    assert rs.aligned(*a[:4]) and not rs.aligned(r, *a[1:4])
+    got = rs.rwkv6_scan(r, *a[1:], chunk=64)
+    assert _rwkv_err(got, rs.plain(*a, chunk=64)) < 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", rs.HEAD_DIMS)
+@pytest.mark.parametrize("chunk", [64, 37])
+def test_rwkv6_kernel_at_every_split(cuda, D, chunk):
+    """Each (D, split) instance of the kernel, with whole and ragged
+    (37-row) chunks."""
+    a = _rwkv(cuda, 1, 2 * chunk, 3, D, D + rs.split(1, 3, D), -6.0)
+    assert _rwkv_err(rs.rwkv6_scan(*a, chunk=chunk),
+                     rs.plain(*a, chunk=chunk)) < 5e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(4, 4096, 1024), (64, 256, 128),
                                    (130, 200, 70), (1, 33, 17),

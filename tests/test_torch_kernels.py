@@ -9,6 +9,9 @@ CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda_kernels.py.
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 
@@ -424,6 +427,60 @@ def test_rwkv6_plain_matches_pallas_at_the_decay_floor():
     o_t, s_t = rs.plain(*(torch.from_numpy(x) for x in a), chunk=64)
     assert torch.isfinite(o_t).all() and torch.isfinite(s_t).all()
     assert err(o_j, o_t) < RWKV_TOL and err(s_j, s_t) < RWKV_TOL
+
+
+# the scan's split over value columns: a pure rule of (B, H, D)
+
+def test_rwkv6_split_of_the_timed_shape():
+    """rwkv6-7b's prefill (B=1, H=64, D=64): 32 value columns a CTA, 128
+    CTAs, within the H100's 132 SMs; B=2 splits the same way."""
+    assert rs.split(1, 64, 64) == 32
+    assert 64 * (64 // rs.split(1, 64, 64)) <= 132
+    assert rs.split(2, 64, 64) == 32
+
+
+@pytest.mark.parametrize("D", rs.HEAD_DIMS)
+def test_rwkv6_split_domain_is_whole(D):
+    """Every head dim and B x H from 1 to 512 gets a plan: a DV of at
+    least one 16-column mma tile that divides D, the same for every B
+    and H; no other head dim, and no empty batch, has one."""
+    sizes = {1, 2, 3, 8, 33, 64, 65, 128, 132, 133, 256, 264, 512}
+    plans = set()
+    for BH in sorted(sizes):
+        for B, H in {(1, BH), (BH, 1)} | ({(2, BH // 2)} if BH % 2 == 0
+                                          else set()):
+            plans.add(rs.split(B, H, D))
+    (dv,) = plans
+    assert dv % 16 == 0 and D % dv == 0
+    for bad in ((1, 64, 48), (0, 64, D), (1, 0, D)):
+        with pytest.raises(ValueError, match="no split"):
+            rs.split(*bad)
+
+
+def test_rwkv6_aligned_rule():
+    """TMA loads where every row of r, k, v, w starts on 16 bytes: the
+    contiguous tensors and timemix_parallel's T slices, not a view 4
+    bytes off; a size-1 dim's stride does not count."""
+    r = torch.zeros((2, 100, 2, 32))
+    assert rs.aligned(r, r, r, r)
+    assert rs.aligned(*(r[:, 96:] for _ in range(4)))
+    off = torch.zeros(r.numel() + 1)[1:].view(r.shape)
+    assert not rs.aligned(off, r, r, r)
+    odd = torch.zeros((1, 3, 5, 16)).as_strided((1, 3, 2, 16),
+                                                (7, 80, 16, 1))
+    assert rs.aligned(odd, odd, odd, odd)        # B = 1: stride 7 unused
+    assert not rs.aligned(*(torch.zeros(200).as_strided(
+        (2, 3, 2, 16), (97, 32, 16, 1)) for _ in range(4)))
+
+
+def test_rwkv6_split_reaches_every_instance():
+    """The (D, DV) instances csrc/rwkv6_scan.cu launches are exactly the
+    ones ``split`` picks: none unreached, none missing."""
+    src = (pathlib.Path(rs.__file__).parent / "csrc" / "rwkv6_scan.cu"
+           ).read_text()
+    cases = {(int(d), int(dv)) for d, dv in
+             re.findall(r"^\s*RWKV6_CASE\((\d+), (\d+)\)$", src, re.M)}
+    assert cases == {(D, rs.split(1, 1, D)) for D in rs.HEAD_DIMS}
 
 
 def _rel(ref_out, out) -> float:
