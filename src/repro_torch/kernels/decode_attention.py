@@ -8,7 +8,9 @@ decode_attention``) over each row's own dense cache;
 (the counterpart of ``paged_decode_attention`` there) over shared page
 pools.  Both take CUDA tensors and refuse anything else; ``plain`` and
 ``paged_plain`` are the same functions in plain PyTorch, which the CPU
-path and the on-card comparison use.
+path and the on-card comparison use; ``split_plain`` and
+``paged_split_plain`` are the kernels' split arithmetic in plain PyTorch,
+for the tests.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8          # query heads per kv head the kernels take
 MAX_PAGE_SIZE = 32
 CHUNK = 128            # slots per CTA of the dense split (csrc CHUNK)
+PAGE_SLOTS = 128       # slots per CTA of the paged split at most (csrc SLOTS)
 _fns: dict = {}       # launcher symbol -> bound ctypes function
 
 
@@ -198,21 +201,36 @@ def _check_paged(q, k_pool, v_pool, page_table, positions):
         raise ValueError(f"page size {ps} (max {MAX_PAGE_SIZE})")
 
 
+def paged_split(NP: int, ps: int,
+                slots: int = PAGE_SLOTS) -> tuple[int, int]:
+    """The paged kernel's split of a row's NP logical pages of ``ps``
+    slots: (pages per CTA, CTAs per (row, kv head)).  A CTA takes a run of
+    max(1, slots // ps) pages, at most ``slots`` slots; the rule reads
+    only the table's shape, never the positions."""
+    pages = max(1, slots // ps)
+    return pages, -(-NP // pages)
+
+
 def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *,
                            window=0, softcap=0.0):
     """q: (B,1,H,D); pools: (P, page_size, KV, D) read in place;
     page_table: (B, NP) int32 (-1 = unmapped); positions: (B,) int32.
-    Returns (B,1,H,D); a row with no live page is exactly 0."""
+    Returns (B,1,H,D); a row with no live page is exactly 0.  One call
+    launches the split over pages and its combine; it counts once."""
     _check_paged(q, k_pool, v_pool, page_table, positions)
-    fn = _bind(PAGED_NAME, "paged_decode_attention_launch", 6, 8)
+    fn = _bind(PAGED_NAME, "paged_decode_attention_launch", 7, 9)
     B, _, H, D = q.shape
     ps, KV = k_pool.shape[1], k_pool.shape[2]
+    NP, G = page_table.shape[1], H // KV
+    pages, splits = paged_split(NP, ps)
     o = torch.empty_like(q)
+    part = torch.empty(B * KV * splits * G * (2 + D), dtype=torch.float32,
+                       device=q.device)
     with build.on_device(q):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), positions.data_ptr(), o.data_ptr(),
-                 B, page_table.shape[1], ps, KV, H // KV, D,
+                 part.data_ptr(), B, NP, ps, pages, KV, G, D,
                  DTYPES[q.dtype], int(window), float(softcap),
                  float(D ** -0.5), stream)
     if err != 0:
@@ -231,3 +249,55 @@ def paged_plain(q, k_pool, v_pool, page_table, positions, *, window=0,
     return paged_decode_attend(q, k_pool, v_pool, page_table, positions,
                                page_size=k_pool.shape[1], window=window,
                                softcap=softcap)
+
+
+def paged_split_plain(q, k_pool, v_pool, page_table, positions, *, window=0,
+                      softcap=0.0, slots=PAGE_SLOTS):
+    """The paged kernel's arithmetic in plain PyTorch, for the tests only:
+    the pages cut into runs by ``paged_split``; each run's max m over its
+    valid slots, p = exp(s - m), l = sum of p and acc = sum of (p rounded
+    to v.dtype) V; the runs merged in run order into M = the max m,
+    L = sum of l e^(m - M) and A = sum of acc e^(m - M) (runs with l = 0
+    skipped); the output A / L.  A row with no live page, including one
+    whose window holds no mapped page, is exactly 0.  Same signature as
+    ``paged_decode_attention``."""
+    B, _, H, D = q.shape
+    ps, KV = k_pool.shape[1], k_pool.shape[2]
+    NP, G = page_table.shape[1], H // KV
+    pages, splits = paged_split(NP, ps, slots)
+    qg = q.reshape(B, KV, G, D).float()
+    pos = positions.long()[:, None]
+    runs = []
+    for r in range(splits):
+        js = torch.arange(r * pages, min(NP, (r + 1) * pages),
+                          device=q.device)
+        ids = page_table[:, js].long()                       # (B, n)
+        ap = (js[:, None] * ps + torch.arange(ps, device=q.device)
+              ).reshape(-1)[None]                            # (1, n ps)
+        ok = (ids >= 0).repeat_interleave(ps, dim=1) & (ap <= pos)
+        if window:
+            ok &= ap > pos - window
+        safe = ids.clamp(min=0)
+        k = k_pool[safe].reshape(B, -1, KV, D)
+        v = v_pool[safe].reshape(B, -1, KV, D)
+        s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * D ** -0.5
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        ok = ok[:, None, None]
+        s = torch.where(ok, s, NEG_INF)
+        m = s.amax(-1)
+        p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+        acc = torch.einsum("bhgs,bshd->bhgd", p.to(v_pool.dtype).float(),
+                           v.float())
+        runs.append((m, p.sum(-1), acc))
+    M = torch.full((B, KV, G), NEG_INF, device=q.device)
+    for m, l, _ in runs:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    L = torch.zeros_like(M)
+    A = torch.zeros((B, KV, G, D), device=q.device)
+    for m, l, acc in runs:
+        c = torch.where(l > 0, torch.exp(m - M), 0.0)
+        L = L + torch.where(l > 0, l * c, 0.0)
+        A = A + torch.where((l > 0)[..., None], acc * c[..., None], 0.0)
+    o = A / L.clamp(min=1e-30)[..., None]
+    return o.reshape(B, 1, H, D).to(q.dtype)

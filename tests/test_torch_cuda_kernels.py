@@ -107,6 +107,7 @@ def test_paged_kernel_matches_plain(cuda, dtype, mode):
     o_ref = da.paged_plain(q, kp, vp, pt_t, pos_t, **kw)
     t = 2e-2 if dtype == torch.bfloat16 else 2e-5
     assert float((o.float() - o_ref.float()).abs().max()) < t
+    _hold_rows(o, o_ref, slice(0, B - 1))
     assert float(o[B - 1].abs().max()) == 0.0
 
 
@@ -128,6 +129,126 @@ def test_paged_kernel_other_geometries(cuda, D, H, KV, ps):
     o = da.paged_decode_attention(q, kp, vp, pt_t, pos_t)
     o_ref = da.paged_plain(q, kp, vp, pt_t, pos_t)
     assert float((o.float() - o_ref.float()).abs().max()) < 2e-2
+    _hold_rows(o, o_ref, slice(0, B))
+
+
+def _hold_rows(o, want, rows):
+    """Each row of ``rows`` within its limit: 4 bf16 ulps of the row's
+    max |want| (at most 2e-2) in bf16, 2e-5 in f32.  On a long row the
+    output averages many V rows and is small, so a flat 2e-2 would hide a
+    dropped page there."""
+    ref = want[rows].float()
+    if want.dtype == torch.bfloat16:
+        top = ref.abs().flatten(1).amax(1).clamp(min=1e-30)
+        lim = torch.clamp(4 * torch.exp2(torch.floor(torch.log2(top)) - 7),
+                          max=2e-2)
+    else:
+        lim = torch.full((ref.shape[0],), 2e-5, device=ref.device)
+    e = (o[rows].float() - ref).abs().flatten(1).amax(1)
+    assert bool((e <= lim).all()), (e.tolist(), lim.tolist())
+
+
+def _paged_pools(cuda, B, P, ps, KV, H, D, dtype, seed):
+    """(q, k_pool, v_pool) on the card."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda, dtype=dtype)
+    kp, vp = (torch.randn((P, ps, KV, D), generator=gen, device=cuda,
+                          dtype=dtype) for _ in range(2))
+    return q, kp, vp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_deterministic_and_rows_independent(cuda, dtype):
+    """Split over pages, combined in split order with no atomics: two
+    calls give the same bits at the engine's geometry, and row 0 does not
+    move when another row's table and position change."""
+    B, H, KV, D, ps, NP, P = 4, 16, 8, 128, 16, 128, 512
+    q, kp, vp = _paged_pools(cuda, B, P, ps, KV, H, D, dtype, 3)
+    rng = np.random.default_rng(3)
+    pt = torch.from_numpy(np.stack([rng.permutation(P)[:NP]
+                                    for _ in range(B)]).astype(np.int32))
+    pt = pt.to(cuda)
+    pos = torch.tensor([1000, 990, 1010, 1005], device=cuda,
+                       dtype=torch.int32)
+    o = da.paged_decode_attention(q, kp, vp, pt, pos)
+    assert torch.equal(o, da.paged_decode_attention(q, kp, vp, pt, pos))
+    pt2, pos2 = pt.clone(), pos.clone()
+    pt2[1:] = pt2[1:].flip(1)
+    pos2[1:] = torch.tensor([2047, 7, 300], device=cuda, dtype=torch.int32)
+    o2 = da.paged_decode_attention(q, kp, vp, pt2, pos2)
+    assert torch.equal(o[0], o2[0])
+    assert not torch.equal(o[1:], o2[1:])
+
+
+# (page size, NP): a run of max(1, 128 // ps) pages a CTA; NP is not a
+# multiple of the run, so each row's last run is short
+PAGED_GEOMETRIES = {"ps1": (1, 300), "ps3": (3, 100), "ps8": (8, 37),
+                    "ps16": (16, 20), "ps32": (32, 10)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*PAGED_GEOMETRIES, "one_page", "g8_f32"])
+def test_paged_kernel_at_every_split_geometry(cuda, case):
+    """Every page size's run, against the gathered plain version and the
+    split arithmetic, each row within its limit.  Rows decode at the last
+    slot of the table, the last slot of the first run and the first slot
+    of the second; ``one_page`` maps one page a row (mid-table, the
+    first, the last); row 3 maps nothing and must be exactly 0."""
+    B, H, KV, D, dtype = 4, 16, 8, 128, torch.bfloat16
+    ps, NP = PAGED_GEOMETRIES.get(case, (16, 20))
+    if case == "g8_f32":
+        KV, dtype = 2, torch.float32
+    pages, splits = da.paged_split(NP, ps)
+    assert splits > 1 and NP % pages
+    P = 3 * NP + 1
+    q, kp, vp = _paged_pools(cuda, B, P, ps, KV, H, D, dtype, NP * ps)
+    rng = np.random.default_rng(ps)
+    pt = np.full((B, NP), -1, np.int32)
+    perm = rng.permutation(P)
+    if case == "one_page":
+        for b, j in ((0, 5), (1, 0), (2, NP - 1)):
+            pt[b, j] = perm[b]
+        pos = np.asarray([5 * ps + 7, 0, NP * ps - 1, 40], np.int32)
+    else:
+        for b in range(3):
+            pt[b] = perm[b * NP:(b + 1) * NP]
+        pos = np.asarray([NP * ps - 1, pages * ps - 1, pages * ps, 40],
+                         np.int32)
+    pt_t, pos_t = torch.from_numpy(pt).to(cuda), torch.from_numpy(pos).to(cuda)
+    o = da.paged_decode_attention(q, kp, vp, pt_t, pos_t)
+    for want in (da.paged_plain(q, kp, vp, pt_t, pos_t),
+                 da.paged_split_plain(q, kp, vp, pt_t, pos_t)):
+        _hold_rows(o, want, slice(0, 3))
+    assert float(o[3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["unmapped", "window"])
+def test_paged_kernel_with_only_the_last_split_live(cuda, mode):
+    """Every split of a row but the last holds no valid slot: its pages
+    are unmapped, or lie outside the window.  The combine skips the dead
+    splits' partials; row 3 maps nothing and must be exactly 0."""
+    B, H, KV, D, ps, NP = 4, 16, 8, 128, 16, 20      # runs of 8, 8 and 4
+    P = 3 * NP
+    q, kp, vp = _paged_pools(cuda, B, P, ps, KV, H, D, torch.bfloat16, 7)
+    rng = np.random.default_rng(7)
+    pt = np.full((B, NP), -1, np.int32)
+    perm = rng.permutation(P)
+    for b in range(3):
+        pt[b] = perm[b * NP:(b + 1) * NP]
+    if mode == "unmapped":
+        pt[:3, :16] = -1
+        kw, first = {}, 16 * ps               # row 1: the run's first slot
+    else:
+        kw, first = dict(window=2 * ps), 18 * ps - 1
+    pos = np.asarray([NP * ps - 1, first, 18 * ps + 5, 100], np.int32)
+    pt_t, pos_t = torch.from_numpy(pt).to(cuda), torch.from_numpy(pos).to(cuda)
+    o = da.paged_decode_attention(q, kp, vp, pt_t, pos_t, **kw)
+    for want in (da.paged_plain(q, kp, vp, pt_t, pos_t, **kw),
+                 da.paged_split_plain(q, kp, vp, pt_t, pos_t, **kw)):
+        _hold_rows(o, want, slice(0, 3))
+    assert float(o[3].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -156,6 +277,11 @@ def test_dispatch_and_refusals_on_the_card(cuda):
                                   pos)
     with pytest.raises(ValueError, match="int32"):
         da.paged_decode_attention(q[:, :1], pool, pool, pt.long(), pos)
+    # an empty page table maps no page: exactly 0, as the plain version
+    o = da.paged_decode_attention(q[:, :1], pool, pool, pt[:, :0], pos)
+    assert float(o.abs().max()) == 0.0
+    assert float(da.paged_plain(q[:, :1], pool, pool, pt[:, :0],
+                                pos).abs().max()) == 0.0
 
 
 @pytest.mark.cuda

@@ -356,6 +356,95 @@ def test_paged_plain_randomized_tables():
         assert err(o_jax, o_port) < 2e-5, seed
 
 
+# the paged kernel's split over pages: a pure rule of (NP, page size)
+
+def _paged_split_case(rng, ps, run, dtype, mode):
+    """A paged case for the split over runs of ``run`` pages: NP = 2 run +
+    1 pages, so the last run is short.  Row 0 maps every page and decodes
+    at the last slot; row 1 leaves its first run unmapped, has a hole in
+    its second (run > 1) and decodes at the first slot of its third run;
+    row 2 decodes at the last slot of its first run; row 3 maps nothing
+    and must be exactly 0."""
+    B, H, KV, D = 4, 4, 2, 64
+    NP = 2 * run + 1
+    P = 3 * NP + 2
+    qj, qt, kj, kt, vj, vt = _paged_case(rng, P, ps, NP, B, H, KV, D, dtype)
+    pt = np.full((B, NP), -1, np.int32)
+    perm = rng.permutation(P)
+    for b in range(3):
+        pt[b] = perm[b * NP:(b + 1) * NP]
+    pt[1, :run] = -1
+    if run > 1:
+        pt[1, run + 1] = -1
+    pos = np.asarray([NP * ps - 1, 2 * run * ps, run * ps - 1, 3], np.int32)
+    kw = {"window": dict(window=ps + 3),
+          "softcap": dict(softcap=20.0)}.get(mode, {})
+    return qj, qt, kj, kt, vj, vt, pt, pos, kw
+
+
+@pytest.mark.parametrize("mode", ["holes", "window", "softcap"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("run", [1, 2, 8])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_paged_split_plain_matches_plain_and_pallas(ps, run, dtype, mode):
+    """The paged kernel's split (per-run m, l and acc with p rounded to
+    the pools' dtype against the run's max, merged in run order), in plain
+    PyTorch, against the gathered plain version and the Pallas kernel
+    (interpret mode): f32 2e-5, bf16 2e-2; the dead row exactly 0."""
+    rng = np.random.default_rng(ps * 10 + run)
+    qj, qt, kj, kt, vj, vt, pt, pos, kw = _paged_split_case(
+        rng, ps, run, dtype, mode)
+    pt_t, pos_t = torch.from_numpy(pt), torch.from_numpy(pos)
+    o = da.paged_split_plain(qt, kt, vt, pt_t, pos_t, slots=run * ps, **kw)
+    assert o.dtype == qt.dtype and o.shape == qt.shape
+    o_plain = da.paged_plain(qt, kt, vt, pt_t, pos_t, **kw)
+    o_jax = jax_paged(qj, kj, vj, jnp.asarray(pt), jnp.asarray(pos),
+                      interpret=True, **kw)
+    assert float((o[:3].float() - o_plain[:3].float()).abs().max()) \
+        < tol(dtype)
+    assert err(np.asarray(o_jax)[:3], o[:3]) < tol(dtype)
+    assert float(o[3].float().abs().max()) == 0.0
+
+
+def test_paged_split_plain_window_without_a_mapped_page():
+    """A row whose window holds no mapped page: the Pallas kernel skips
+    every page and writes 0, and so does the split (the gathered oracle
+    averages every slot there instead; ROADMAP, reference behaviours)."""
+    rng = np.random.default_rng(5)
+    P, ps, NP, B, H, KV, D = 12, 8, 6, 2, 4, 2, 64
+    qj, qt, kj, kt, vj, vt = _paged_case(rng, P, ps, NP, B, H, KV, D,
+                                         "float32")
+    pt = np.stack([rng.permutation(P)[:NP] for _ in range(B)]).astype(
+        np.int32)
+    pt[1, 3:] = -1                       # row 1: pages 3-5 unmapped
+    pos = np.asarray([NP * ps - 1, 5 * ps + 3], np.int32)
+    kw = dict(window=ps)                 # row 1's window: pages 4 and 5
+    o = da.paged_split_plain(qt, kt, vt, torch.from_numpy(pt),
+                             torch.from_numpy(pos), slots=2 * ps, **kw)
+    o_jax = jax_paged(qj, kj, vj, jnp.asarray(pt), jnp.asarray(pos),
+                      interpret=True, **kw)
+    assert float(np.abs(np.asarray(o_jax)[1]).max()) == 0.0
+    assert float(o[1].abs().max()) == 0.0
+    assert err(o_jax, o) < 2e-5
+
+
+def test_paged_split_holds_the_source_constant():
+    """csrc/paged_decode_attention.cu's SLOTS is the wrapper's PAGE_SLOTS,
+    and ``paged_split`` gives every page size of the domain a run that
+    fits it and wastes less than one page of it, covering NP once; the
+    engine's geometry (NP = 128, ps = 16) splits into 16 runs of 8."""
+    src = (pathlib.Path(da.__file__).parent / "csrc"
+           / "paged_decode_attention.cu").read_text()
+    slots = re.findall(r"^constexpr int SLOTS = (\d+);", src, re.M)
+    assert slots == [str(da.PAGE_SLOTS)]
+    for ps in range(1, da.MAX_PAGE_SIZE + 1):
+        for NP in (1, 2, 7, 8, 9, 64, 128, 129):
+            pages, splits = da.paged_split(NP, ps)
+            assert da.PAGE_SLOTS - ps < pages * ps <= da.PAGE_SLOTS
+            assert (splits - 1) * pages < NP <= splits * pages
+    assert da.paged_split(128, 16) == (8, 16)
+
+
 # -- rwkv6 scan and int8 matmul ---------------------------------------------
 
 RWKV_TOL = 5e-4
