@@ -540,44 +540,105 @@ def _spec_case(kind, g, V, gen):
     return d.to(torch.int32), q.contiguous(), p.contiguous(), u
 
 
+def spec_bytes(g: int, n: int, V: int) -> int:
+    """What ``spec_accept``'s inputs need: the tokens, uniforms and both
+    token probabilities of the drafts up to the cut (min(n + 1, g) of
+    each), row n of p (and of q when n < g), dist written once, and n."""
+    return 4 * 4 * min(n + 1, g) + (2 if n < g else 1) * V * 4 + V * 4 + 4
+
+
 def check_spec(sv, gen) -> dict:
-    """spec_accept against its plain version at V = 32768: n exactly,
-    dist within 1e-6 abs."""
-    V = 32768
+    """spec_accept against its plain version at V = 32768 and 262144
+    (gemma3_4b's vocab): n exactly, dist within 1e-6 abs; draft ids out
+    of [0, V) rejected where they stand; bit-equal on a second call.  The
+    tier's shape, g = 4, timed by events at both V, random drafts (n = 0)
+    and greedy ones (n = 2), beside the bound and the back-to-back launch
+    floor (an empty kernel timed the same way), with the profiler's
+    device time of the V = 32768 row."""
+    from repro_torch.kernels import build
+    for ln in ptxas_lines(build.logs.get("spec_verify", ""),
+                          "spec_accept_kernel",
+                          {"Lb1E": "vec4", "Lb0E": "scalar"}):
+        log(f"spec_accept build: {ln}")
+    # ``gen`` gives the cases at V = 32768 and the timed row's inputs;
+    # every other case comes from a generator of this check's own, so the
+    # phases after it draw the same inputs whatever is added here
+    own = torch.Generator("cuda").manual_seed(SEED)
     worst = 0.0
-    for g in (1, 4, 8):
-        for kind in ("random", "greedy", "q0"):
-            d, q, p, u = _spec_case(kind, g, V, gen)
-            n, dist = sv.spec_accept(d, q, p, u)
-            n_ref, dist_ref = sv.plain(d, q, p, u)
-            torch.cuda.synchronize()
+    for V, gs, g_ in ((32768, (1, 4, 8), gen), (262144, (4,), own)):
+        for g in gs:
+            for kind in ("random", "greedy", "q0"):
+                d, q, p, u = _spec_case(kind, g, V, g_)
+                n, dist = sv.spec_accept(d, q, p, u)
+                n_ref, dist_ref = sv.plain(d, q, p, u)
+                torch.cuda.synchronize()
+                err = max_err(dist, dist_ref)
+                worst = max(worst, err)
+                if int(n) != int(n_ref) or err > SPEC_TOL:
+                    raise AssertionError(f"spec_accept g={g} V={V} {kind}: "
+                                         f"n {int(n)} vs {int(n_ref)}, dist "
+                                         f"err {err}")
+                log(f"spec_accept g={g} V={V} {kind}: n={int(n)} (plain "
+                    f"{int(n_ref)}), dist max_abs_err={err:.3e} (tol "
+                    f"{SPEC_TOL})")
+    timed = {(32768, "random"): _spec_case("random", 4, 32768, gen)}
+    for V in (32768, 262144):
+        # one-hot drafts, all accepted but for an id out of [0, V) at 2
+        # (p_2 = q_2: the residual is 0 and dist is p_2)
+        d = torch.randint(0, V, (4,), generator=own, device="cuda")
+        q = torch.nn.functional.one_hot(d, V).float()
+        p, u = torch.cat([q, q[:1]]), torch.zeros(4, device="cuda")
+        for bad in (V + 3, -1):
+            dd = d.to(torch.int32)
+            dd[2] = bad
+            n, dist = sv.spec_accept(dd, q, p, u)
+            n_ref, dist_ref = sv.plain(dd, q, p, u)
             err = max_err(dist, dist_ref)
-            worst = max(worst, err)
-            if int(n) != int(n_ref) or err > SPEC_TOL:
-                raise AssertionError(f"spec_accept g={g} {kind}: n {int(n)} "
-                                     f"vs {int(n_ref)}, dist err {err}")
-            log(f"spec_accept g={g} {kind}: n={int(n)} (plain "
-                f"{int(n_ref)}), dist max_abs_err={err:.3e} (tol "
-                f"{SPEC_TOL})")
-    # the timed shape: the speculative tier's, g = 4 over the padded vocab
-    d, q, p, u = _spec_case("random", 4, V, gen)
-    ms = time_ms(lambda: sv.spec_accept(d, q, p, u), iters=100)
+            if int(n) != 2 or int(n_ref) != 2 or err > SPEC_TOL:
+                raise AssertionError(f"spec_accept V={V} id {bad} at 2: n "
+                                     f"{int(n)} (plain {int(n_ref)}), need "
+                                     f"2; dist err {err}")
+        log(f"spec_accept V={V}: draft ids {V + 3} and -1 at position 2 "
+            f"rejected there (n=2, as plain), split {sv.split(V)} "
+            f"(CTAs, threads)")
+        for kind in ("random", "greedy"):
+            if (V, kind) not in timed:
+                timed[V, kind] = _spec_case(kind, 4, V, own)
+    for (V, kind), (d, q, p, u) in timed.items():
+        n1, d1 = sv.spec_accept(d, q, p, u)
+        n2, d2 = sv.spec_accept(d, q, p, u)
+        if not (torch.equal(n1, n2) and torch.equal(d1, d2)):
+            raise AssertionError(f"spec_accept V={V} {kind}: a second call "
+                                 "gave other bits")
+        n = int(n1)
+        ms = time_ms(lambda: sv.spec_accept(d, q, p, u), iters=100)
+        nbytes = spec_bytes(4, n, V)
+        bms, by = bound(4 * min(n + 1, 4) + 3 * V, nbytes)
+        timed[V, kind] = dict(n=n, ms=ms, bound_ms=bms, bound_by=by,
+                              nbytes=nbytes, args=(d, q, p, u))
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), iters=100)
+    row = timed[32768, "random"]
+    d, q, p, u = row["args"]
     plain_ms = time_ms(lambda: sv.plain(d, q, p, u), iters=20)
-    n = int(sv.spec_accept(d, q, p, u)[0])
-    # what these inputs need: the 2g token probabilities (of the rows
-    # before the cut), the tokens and uniforms, row n of p (and of q
-    # when n < g) and dist written once
-    rows = 2 if n < 4 else 1
-    nbytes = 2 * 4 * 4 + 2 * 4 * 4 + rows * V * 4 + V * 4 + 4
-    flops = 4 * 4 + 3 * V
-    bms, by = bound(flops, nbytes)
-    log(f"spec_accept timed g=4 V={V} (n={n}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, {nbytes} bytes)")
+    dev, names = device_ms(lambda: sv.spec_accept(d, q, p, u), iters=100)
+    for (V, kind), t in timed.items():
+        log(f"spec_accept timed g=4 V={V} {kind} (n={t['n']}): kernel "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}, {t['nbytes']} bytes), launch floor "
+            f"{floor_ms:.4f} ms (an empty kernel back to back); split "
+            f"{sv.split(V)}; bit-equal on a second call")
+    log(f"spec_accept timed g=4 V=32768 random: plain {plain_ms:.4f} ms, "
+        f"profiler device time per call {dev:.4f} ms {names}")
+    extra = {f"{'v262144' if V == 262144 else 'v32768'}_{kind}": dict(
+        n=t["n"], ms=t["ms"], bound_ms=t["bound_ms"])
+        for (V, kind), t in timed.items() if (V, kind) != (32768, "random")}
     return dict(name="spec_accept", route="cuda",
                 source="src/repro_torch/kernels/csrc/spec_verify.cu",
                 replaces="src/repro/kernels/spec_verify.py:53",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                max_abs_err=worst, ms=row["ms"], plain_ms=plain_ms,
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=None, device_ms=dev, launch_floor_ms=floor_ms,
+                split=list(sv.split(32768)), **extra)
 
 
 def rwkv_runs(T: int, chunk: int = 64) -> list[tuple[int, int]]:
@@ -1449,7 +1510,7 @@ def main() -> int:
     log(f"build: {len(build.KERNELS)} kernels in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process each)")
     for name, text in build.logs.items():
-        if name in ("int8_matmul", "rwkv6_scan"):
+        if name in ("int8_matmul", "rwkv6_scan", "spec_verify"):
             continue      # their checks print them, by kernel
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:

@@ -120,12 +120,18 @@ def spec_accept(draft_tokens, draft_probs, target_probs, u):
     positions and the bonus one; u: (g,) uniforms in [0, 1).  Returns
     (n (), int32: the accepted prefix length, dist (V,) float32: the
     distribution the next token is drawn from).  Everything stays on the
-    inputs' device (no host sync)."""
+    inputs' device (no host sync).  A draft id outside [0, V) counts as
+    p = q = 0 there, a rejection, as the Pallas kernel's one-hot
+    reduction finds no column for it."""
     g = draft_tokens.shape[0]
     dp, tp = draft_probs.float(), target_probs.float()
     idx = torch.arange(g, device=dp.device)
     tok = draft_tokens.long()
-    ratio = tp[idx, tok] / dp[idx, tok].clamp(min=1e-30)
+    ok = (tok >= 0) & (tok < dp.shape[-1])
+    tok = torch.where(ok, tok, 0)
+    zero = torch.zeros((), dtype=dp.dtype, device=dp.device)
+    ratio = (torch.where(ok, tp[idx, tok], zero)
+             / torch.where(ok, dp[idx, tok], zero).clamp(min=1e-30))
     acc = (u.float() < ratio.clamp(max=1.0)).to(torch.int32)
     n = torch.cumprod(acc, 0).sum().to(torch.int32)
     p_n = tp[n]

@@ -11,6 +11,11 @@ Gumbel noise over the vocabulary to sample the next token from ``dist``
 (Gumbel-max over ``log(dist + 1e-30)``, the categorical draw of the JAX
 package).  Drawing on the CPU makes one generator state give the same
 draws on either device.
+
+The kernel is one launch of a thread-block cluster split over the
+vocabulary; ``split`` is its pure rule of V, the same one the kernel
+source states (``csrc/spec_verify.cu``'s ``split``), never chosen from a
+failed launch.
 """
 
 from __future__ import annotations
@@ -23,6 +28,25 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 NAME = "spec_verify"
+QUAD = 4            # floats per 16-byte load
+MAX_CLUSTER = 8     # CTAs of a cluster: the portable limit
+MAX_THREADS = 1024  # threads of a CTA
+REG_QUADS = 4       # quads of each row a thread holds in registers a pass
+
+
+def split(V: int) -> tuple[int, int]:
+    """(C, threads): the cluster of C CTAs of ``threads`` threads the
+    kernel launches for a vocabulary of V.  V is cut into quads of 4
+    floats; C grows to 8 as the quads fill CTAs of 1024 threads (V =
+    32768: 8 CTAs with one 16-byte load of each row a thread), each CTA
+    owns a contiguous run of ceil(quads / C) quads, and its threads are
+    that run rounded up to a warp, at most 1024."""
+    if V < 1:
+        raise ValueError(f"no split for V={V}")
+    quads = -(-V // QUAD)
+    C = min(MAX_CLUSTER, -(-quads // MAX_THREADS))
+    per = -(-quads // C)
+    return C, min(MAX_THREADS, -(-per // 32) * 32)
 
 
 def _bind():
@@ -80,7 +104,12 @@ def spec_accept(draft_tokens, draft_probs, target_probs, u):
                  target_probs.data_ptr(), u.data_ptr(), n.data_ptr(),
                  dist.data_ptr(), g, V, stream)
     if err != 0:
-        raise RuntimeError(f"spec_accept launch failed: cudaError {err}")
+        C, threads = split(V)
+        what = {-1: "shape refused",
+                -2: "the card cannot place the cluster"}.get(
+                    err, f"cudaError {err}")
+        raise RuntimeError(f"spec_accept launch failed (cluster of {C} "
+                           f"CTAs of {threads} threads): {what}")
     spec_accept.launches += 1
     return n, dist
 

@@ -499,6 +499,128 @@ def test_spec_accept_kernel_matches_plain(cuda, g, V, kind):
         assert float((dist - dist_ref).abs().max()) < 1e-6
 
 
+def _spec_vs_plain(args):
+    n, dist = sv.spec_accept(*args)
+    n_ref, dist_ref = sv.plain(*args)
+    assert int(n) == int(n_ref)
+    assert float((dist - dist_ref).abs().max()) < 1e-6
+    return int(n), dist
+
+
+def _greedy_prefix(cuda, g, V, k, seed):
+    """One-hot drafts of which the first k agree with the target's
+    tokens and draft k (when k < g) does not: n = k."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    t = torch.randint(0, V, (g + 1,), generator=gen, device=cuda)
+    d = t[:g].clone()
+    if k < g:
+        d[k] = (d[k] + 1) % V
+    u = torch.rand((g,), generator=gen, device=cuda)
+    return (d.to(torch.int32), torch.nn.functional.one_hot(d, V).float(),
+            torch.nn.functional.one_hot(t, V).float(), u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [33, 1001, 262144])
+@pytest.mark.parametrize("kind", ["random", "greedy", "q0"])
+def test_spec_accept_kernel_at_scalar_and_large_vocabs(cuda, V, kind):
+    """V = 33 and 1001 (V % 4 != 0) take the scalar path; V = 262144
+    (gemma3_4b's vocab) takes 8 CTAs, each thread in two passes."""
+    for seed in range(3):
+        _spec_vs_plain(_spec_inputs(cuda, 4, V, seed, kind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,k", [(33, 0), (33, 31), (33, 32), (33, 33),
+                                 (64, 31), (64, 32), (64, 33), (64, 63),
+                                 (64, 64)])
+@pytest.mark.parametrize("V", [512, 32768])
+def test_spec_accept_kernel_past_one_ballot(cuda, g, k, V):
+    """g > 32 takes the ballot in chunks of 32: the first rejection in any
+    chunk, and none at all (k = g, the bonus row)."""
+    assert _spec_vs_plain(_greedy_prefix(cuda, g, V, k, g + k))[0] == k
+    _spec_vs_plain(_spec_inputs(cuda, g, V, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,bad", [(1, ((0, "over"),)), (1, ((0, "neg"),)),
+                                   (4, ((0, "over"),)), (4, ((2, "neg"),)),
+                                   (4, ((3, "over"),)),
+                                   (4, ((1, "neg"), (3, "over"))),
+                                   (33, ((32, "over"),))])
+@pytest.mark.parametrize("V", [33, 512, 32768])
+def test_spec_accept_kernel_rejects_out_of_range_ids(cuda, g, bad, V):
+    """A draft id of V + 3 or -1 reads nothing and is a rejection, as in
+    the Pallas kernel: after in-range drafts that are all accepted, n is
+    the first bad id's position (a last draft of V + 3 would read past
+    the end of q if it were read)."""
+    d, q, p, u = _greedy_prefix(cuda, g, V, g, V)
+    for pos, which in bad:
+        d[pos] = V + 3 if which == "over" else -1
+    n, _ = _spec_vs_plain((d, q, p, u))
+    assert n == min(pos for pos, _ in bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rejected", "bonus"])
+@pytest.mark.parametrize("V", [33, 32768, 262144])
+def test_spec_accept_kernel_all_zero_residual(cuda, case, V):
+    """A residual that sums to 0 takes the 1e-9 branch in every CTA:
+    dist is p_n exactly.  ``rejected``: draft 1 is out of range and p_1 =
+    q_1; ``bonus``: every draft accepted and p_g all zero."""
+    g = 4
+    d, q, p, u = _greedy_prefix(cuda, g, V, g, V + 1)
+    if case == "rejected":
+        d[1] = V + 3
+        p[1] = q[1]
+    else:
+        p[g] = 0.0
+    n, dist = _spec_vs_plain((d, q, p, u))
+    assert n == (1 if case == "rejected" else g)
+    assert torch.equal(dist, p[n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,kind", [(32768, "random"), (32768, "greedy"),
+                                    (262144, "random"), (1001, "q0")])
+def test_spec_accept_kernel_is_deterministic(cuda, V, kind):
+    """The cluster's partial sums merge in rank order, with no atomics:
+    a second call gives the same bits."""
+    args = _spec_inputs(cuda, 4, V, 5, kind)
+    n1, d1 = sv.spec_accept(*args)
+    n2, d2 = sv.spec_accept(*args)
+    assert torch.equal(n1, n2) and torch.equal(d1, d2)
+
+
+@pytest.mark.cuda
+def test_spec_accept_kernel_reads_unaligned_rows(cuda):
+    """Rows that start off a 16-byte boundary (V % 4 == 0, base pointers
+    one float in) take the scalar path with the same result."""
+    g, V = 4, 1024
+    gen = torch.Generator(cuda).manual_seed(11)
+    buf = torch.softmax(2 * torch.randn((2 * g + 2, V), generator=gen,
+                                        device=cuda), -1).flatten()
+    q = buf[1:1 + g * V].view(g, V)
+    p = buf[1 + g * V:1 + (2 * g + 1) * V].view(g + 1, V)
+    assert q.data_ptr() % 16 and p.is_contiguous()
+    d = torch.multinomial(q, 1, generator=gen)[:, 0].to(torch.int32)
+    u = torch.rand((g,), generator=gen, device=cuda)
+    _spec_vs_plain((d, q, p, u))
+
+
+@pytest.mark.cuda
+def test_spec_accept_source_split_is_the_rule(cuda):
+    """The split the kernel source launches is ``spec_verify.split``."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.load(sv.NAME).spec_accept_split
+    for V in [*range(1, 300), 1001, 4096, 32767, 32768, 32769, 65536,
+              131072, 262144, 1 << 20]:
+        C, T = ctypes.c_int(), ctypes.c_int()
+        assert fn(V, ctypes.byref(C), ctypes.byref(T)) == 0
+        assert (C.value, T.value) == sv.split(V)
+
+
 @pytest.mark.cuda
 def test_spec_verify_refusals_dispatch_and_draws(cuda):
     d, q, p, u = _spec_inputs(cuda, 4, 512, 0)

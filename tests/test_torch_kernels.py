@@ -287,6 +287,80 @@ def test_spec_accept_plain_matches_pallas_interpret(g, V, kind):
         assert int(n_o) == int(n_t) and torch.equal(dist_o, dist_t)
 
 
+# draft ids outside [0, V): the Pallas kernel's one-hot finds no column, so
+# p = q = 0 there, a rejection; (position, id) pairs, "over" = V + 3
+@pytest.mark.parametrize("g,bad", [
+    (1, ((0, "over"),)), (1, ((0, "neg"),)),
+    (4, ((0, "over"),)), (4, ((2, "neg"),)), (4, ((3, "over"),)),
+    (4, ((1, "neg"), (3, "over"))), (4, ((2, "over"), (0, "neg")))])
+@pytest.mark.parametrize("kind", ["random", "greedy", "zero_resid"])
+def test_spec_accept_plain_rejects_out_of_range_ids_as_pallas(g, bad, kind):
+    """n exactly and dist within 1e-6 of the Pallas kernel; with greedy
+    drafts every in-range draft is accepted, so n is the first bad id's
+    position.  ``zero_resid`` makes row n of p equal row n of q at the
+    first bad id: the residual is all zero and dist is p_n."""
+    V = 32
+    kind_of = "random" if kind == "zero_resid" else kind
+    d, q, p, u = _accept_case(np.random.default_rng(g), g, V, kind_of)
+    if kind_of == "greedy":
+        q = np.eye(V, dtype=np.float32)[d]
+        p = np.eye(V, dtype=np.float32)[np.append(d, 0)]
+    for pos, which in bad:
+        d[pos] = V + 3 if which == "over" else -1
+    first = min(pos for pos, _ in bad)
+    if kind == "zero_resid":
+        p[first] = q[first]
+    n_j, dist_j = jax_accept(jnp.asarray(d), jnp.asarray(q), jnp.asarray(p),
+                             jnp.asarray(u), interpret=True)
+    n_t, dist_t = sv.plain(*(torch.from_numpy(a) for a in (d, q, p, u)))
+    assert int(n_t) == int(n_j)
+    assert float(np.abs(np.asarray(dist_j) - dist_t.numpy()).max()) < 1e-6
+    if kind == "greedy":
+        assert int(n_t) == first
+    if kind == "zero_resid" and int(n_t) == first:
+        assert torch.equal(dist_t, torch.from_numpy(p[first]))
+
+
+# the kernel's cluster split over V: a pure rule
+@pytest.mark.parametrize("V,want", [(1, (1, 32)), (3, (1, 32)),
+                                    (33, (1, 32)), (512, (1, 128)),
+                                    (32768, (8, 1024)), (65536, (8, 1024)),
+                                    (262144, (8, 1024))])
+def test_spec_split_of_vocab_sizes(V, want):
+    """V = 32768 fills 8 CTAs with one 16-byte load of each row a thread;
+    below that fewer, narrower CTAs; above it 8 CTAs of 1024 threads."""
+    assert sv.split(V) == want
+
+
+def test_spec_split_domain_is_whole():
+    """Every V gets a cluster of 1-8 CTAs of whole warps, at most 1024
+    threads, whose runs of ceil(quads / C) quads cover the vocabulary once
+    with no CTA left empty; V < 1 is refused."""
+    for V in [*range(1, 2100), 4095, 4097, 32767, 32769, 131072, 131073,
+              262144, 1 << 20]:
+        C, threads = sv.split(V)
+        quads = -(-V // sv.QUAD)
+        per = -(-quads // C)
+        assert 1 <= C <= sv.MAX_CLUSTER and (C - 1) * per < quads <= C * per
+        assert threads % 32 == 0 and 32 <= threads <= sv.MAX_THREADS
+        assert threads >= min(per, sv.MAX_THREADS)
+        assert C == sv.MAX_CLUSTER or per <= sv.MAX_THREADS
+    with pytest.raises(ValueError, match="no split"):
+        sv.split(0)
+
+
+def test_spec_split_holds_the_source_constants():
+    """csrc/spec_verify.cu states the rule's constants as the wrapper
+    does."""
+    src = (pathlib.Path(sv.__file__).parent / "csrc" / "spec_verify.cu"
+           ).read_text()
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert consts == {"QUAD": str(sv.QUAD),
+                      "MAX_CLUSTER": str(sv.MAX_CLUSTER),
+                      "MAX_THREADS": str(sv.MAX_THREADS),
+                      "REG_QUADS": str(sv.REG_QUADS)}
+
+
 def test_spec_verify_draws_from_the_generator():
     """``spec_verify`` is a function of the generator's state: one seed,
     one result; the greedy case is free of randomness."""
