@@ -40,14 +40,29 @@ the result line):
                             with the draft on the target's weights:
                             acceptance 1.0, full-accept and short-tail
                             rewinds
+               migrate      the migration wire: a sampled 1024-token
+                            request leaves a ``PagedEngine`` after 8
+                            decode steps (v2, live pages) and a dense
+                            ``Engine`` (v1, into another slot index),
+                            crosses pack_slot -> compression -> an
+                            attested, sealed ``Channel`` -> unpack_slot ->
+                            repack_slot -> inject_slot into an engine of
+                            another seed that holds a 200-token request,
+                            and finishes with the unmigrated run's tokens
+                            bit for bit; then a whole ``Engine(slots=2,
+                            max_len=1024)`` workspace through ``Migrator``
+                            in full and incrementally
                then rwkv6-7b at full width (bf16, seed 0; llama freed):
                rwkv         ``Engine(slots=4, max_len=2048)``: four
                             requests, rwkv6_scan launched 32 times per
                             chunk run of every prefill, a fifth request in
                             a retired slot equal to a fresh engine's,
                             inactive slots' state untouched, profiles,
-                            prefill logits against plain, and the chunk-64
-                            prefill state against 1536 decode steps
+                            prefill logits against plain, the chunk-64
+                            prefill state against 1536 decode steps, and
+                            one slot moved after 8 decode steps into a
+                            second engine (seed 9) with the unmigrated
+                            run's tokens
   5. the kernels' JSON line, the card line, and the result line
 """
 
@@ -1333,6 +1348,283 @@ def run_self_draft(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the migration wire at full width
+# ---------------------------------------------------------------------------
+
+def _session(cfg):
+    """An attested edge -> cloud session over a simulated 1 Gbps
+    ``Channel``, both enclaves measuring ``cfg`` on the card."""
+    from repro_torch.core.attestation import (Attester, TrustAuthority,
+                                              capabilities, measure_config)
+    from repro_torch.core.channel import AttestedSession, Channel
+    auth, gid = TrustAuthority(), measure_config(cfg)
+    caps = capabilities(cfg)
+    return AttestedSession(Attester("edge", auth, gid, caps),
+                           Attester("cloud", auth, gid, caps), Channel(),
+                           {gid}), gid
+
+
+def slot_hop(label, src, slot, dst, cfg, *, into=None):
+    """One request's hop: extract_slot -> pack_slot -> compress -> the
+    attested, sealed transfer -> decompress -> unpack_slot -> repack_slot
+    -> inject_slot.  Prints the bytes and each stage's host seconds on
+    the card's machine; returns (the resumed request, the snapshot)."""
+    from repro_torch import compression
+    from repro_torch.core.migration import pack_slot, repack_slot, unpack_slot
+    session, gid = _session(cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    snap = src.extract_slot(slot)
+    blob = pack_slot(snap)
+    checkpoint_s = time.perf_counter() - t
+    t = time.perf_counter()
+    wire = compression.compress(blob)
+    compress_s = time.perf_counter() - t
+    clock0 = session.channel.clock()
+    t = time.perf_counter()
+    received = session.transfer(wire, aad=gid.encode())
+    seal_s = time.perf_counter() - t
+    transfer_s = session.channel.clock() - clock0
+    t = time.perf_counter()
+    snap2 = unpack_slot(compression.decompress(received), dst.slot_like())
+    moved = dst.inject_slot(repack_slot(snap2, dst.max_len), slot=into)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    log(f"{label}: {snap.rid} v{snap.version} raw {len(blob)} bytes, wire "
+        f"{len(wire)} bytes ({compression.BACKEND}); checkpoint "
+        f"{checkpoint_s:.4f} s, compress {compress_s:.4f} s, seal+open "
+        f"{seal_s:.4f} s, transfer {transfer_s:.4f} s (simulated 1 Gbps), "
+        f"restore {restore_s:.4f} s (host seconds on the card's machine, "
+        f"{gpu_line()})")
+    return moved, snap
+
+
+def _hop_requests(cfg):
+    """The hop's three requests: a sampled 1024-token request beside a
+    37-token and a 512-token greedy one, 32 new tokens each."""
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(SEED + 7)
+    return [Request("m0", rng.integers(0, cfg.vocab_size, 1024),
+                    max_new_tokens=32, temperature=0.7, top_k=16),
+            Request("m1", rng.integers(0, cfg.vocab_size, 37),
+                    max_new_tokens=32),
+            Request("m2", rng.integers(0, cfg.vocab_size, 512),
+                    max_new_tokens=32)]
+
+
+def _resident(cfg):
+    from repro_torch.serving.engine import Request
+    prompt = np.random.default_rng(SEED + 8).integers(0, cfg.vocab_size, 200)
+    return Request("d0", prompt, max_new_tokens=32)
+
+
+class Tally:
+    """The prefills and decode steps the ``migrate`` path drives, by
+    engine kind: its launches must be exactly 24 flash_attention a
+    prefill and 24 paged / dense decode kernels a step, so a hop that
+    re-prefilled or left the kernels would show."""
+
+    def __init__(self):
+        self.prefills, self.steps = 0, {"paged": 0, "dense": 0}
+
+    def add(self, eng, *reqs):
+        for r in reqs:
+            if not eng.add_request(r):
+                raise AssertionError(f"{r.rid} refused with a slot free")
+            self.prefills += 1
+
+    def step(self, eng) -> dict:
+        from repro_torch.serving.paged import PagedEngine
+        self.steps["paged" if isinstance(eng, PagedEngine) else "dense"] += 1
+        return eng.step()
+
+    def drain(self, eng) -> dict:
+        """Steps ``eng`` until it holds no request; returns every live
+        request's output by rid."""
+        reqs = list(eng.requests.values())
+        while eng.requests:
+            self.step(eng)
+        return {r.rid: list(r.output) for r in reqs}
+
+    def check(self, counts: dict, layers: int):
+        want = {"flash_attention": layers * self.prefills,
+                "paged_decode_attention": layers * self.steps["paged"],
+                "decode_attention": layers * self.steps["dense"]}
+        got = {k: n for k, n in counts.items() if n or k in want}
+        if got != want:
+            raise AssertionError(
+                f"migrate launch counts {got}: need {layers} x "
+                f"{self.prefills} prefills, {layers} x {self.steps} steps "
+                f"and no other kernel: {want}")
+
+
+def hop_pair(make, cfg, tally, label, landed, *, into=None):
+    """One request's hop between two engines of one kind beside busy
+    rows, against unmigrated runs: m0 (sampled) leaves ``make(SEED)``
+    after 8 steps and finishes in ``make(9)``, which already serves d0.
+    ``landed(src, dst, moved, position, snapshot)`` checks the engines
+    just after the hop.  m0's tokens must equal a run without the hop,
+    m1's and m2's (left in the source) that run's too, and d0's those of
+    a ``make(9)`` that takes no injection.  Returns (src, dst), both
+    drained."""
+    ref = make(SEED)
+    tally.add(ref, *_hop_requests(cfg))
+    want = tally.drain(ref)
+    del ref
+    solo = make(9)
+    tally.add(solo, _resident(cfg))
+    want.update(tally.drain(solo))
+    del solo
+    src = make(SEED)
+    reqs = _hop_requests(cfg)
+    tally.add(src, *reqs)
+    for _ in range(8):
+        tally.step(src)
+    dst = make(9)
+    tally.add(dst, _resident(cfg))
+    pos = int(src.state.positions[reqs[0].slot])
+    moved, snap = slot_hop(label, src, reqs[0].slot, dst, cfg, into=into)
+    landed(src, dst, moved, pos, snap)
+    got = tally.drain(dst)
+    got.update(tally.drain(src))
+    if got != want:
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        raise AssertionError(f"{label}: {bad} differ from the unmigrated "
+                             f"runs: {got} != {want}")
+    return src, dst
+
+
+def run_migrate(cfg, params) -> dict:
+    """The migration wire on llama-1.5b at full width: the paged (v2)
+    and dense (v1) slot hops and the workspace ``Migrator``, each
+    resuming with the unmigrated run's tokens bit for bit, the rows
+    beside it untouched, and every prefill and step on the kernels."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.paged import PagedEngine
+    zero_counts()
+    torch.cuda.synchronize()
+    tally = Tally()
+
+    # paged (v2): source pages=160, destination pages=256
+    geo = dict(rows=4, page_size=16, max_len=2048, device="cuda")
+    hop = {}
+
+    def paged_landed(src, dst, moved, pos, snap):
+        n_live = snap.arrays.caches[0][0]["attn"]["k"].shape[1]
+        left = sum(len(src._row_pages(r)) for r in src.requests)
+        if src.allocator.used_pages != left or n_live != -(-pos // 16):
+            raise AssertionError(f"paged hop: source holds "
+                                 f"{src.allocator.used_pages} pages (its "
+                                 f"rows {left}); n_live {n_live} for "
+                                 f"position {pos}")
+        src.check()
+        dst.check()
+        hop.update(pos=pos, n_live=n_live)
+
+    src, dst = hop_pair(
+        lambda seed: PagedEngine(cfg, params, pages=160 if seed == SEED
+                                 else 256, seed=seed, **geo),
+        cfg, tally, "migrate paged", paged_landed)
+    for eng in (src, dst):
+        eng.check()
+        if eng.allocator.used_pages:
+            raise AssertionError(f"{eng.allocator.used_pages} pages held "
+                                 "after every request retired")
+    pos, n_live = hop["pos"], hop["n_live"]
+    log(f"migrate paged: m0 (1024 prompt tokens, temperature 0.7, top_k 16) "
+        f"left PagedEngine(pages=160, seed {SEED}) after 8 steps at "
+        f"position {pos} with {n_live} live pages (ceil({pos}/16)), its "
+        f"source pages freed, and finished in PagedEngine(pages=256, seed "
+        f"9) beside a 200-token request: 32 tokens equal the unmigrated "
+        f"run's bit for bit; m1, m2 (left in the source) and d0 equal "
+        f"their runs without the hop; check() passed on both engines")
+    del src, dst
+
+    # dense (v1): the same hop between two Engine(slots=4), slot 0 -> 2
+    dgeo = dict(slots=4, max_len=2048, device="cuda")
+
+    def dense_landed(src, dst, moved, pos, snap):
+        if moved.slot != 2 or snap.version != 1:
+            raise AssertionError(f"dense hop: v{snap.version} landed in "
+                                 f"slot {moved.slot}, not 2")
+
+    src, dst = hop_pair(
+        lambda seed: Engine(cfg, params, seed=seed, **dgeo),
+        cfg, tally, "migrate dense", dense_landed, into=2)
+    log(f"migrate dense: m0 moved from slot 0 of Engine(seed {SEED}) to "
+        f"slot 2 of Engine(seed 9) after 8 steps: 32 tokens equal the "
+        f"unmigrated run's bit for bit; m1, m2 and d0 equal their runs "
+        f"without the hop")
+    del src, dst
+    run_workspace(cfg, params, tally)
+    counts = read_counts()
+    tally.check(counts, cfg.num_layers)
+    log(f"migrate: launches flash_attention={counts['flash_attention']} "
+        f"({cfg.num_layers} x {tally.prefills} prefills), "
+        f"paged_decode_attention={counts['paged_decode_attention']}, "
+        f"decode_attention={counts['decode_attention']} ({cfg.num_layers} "
+        f"x {tally.steps} steps), exactly")
+    return counts
+
+
+def run_workspace(cfg, params, tally):
+    """A whole ``Engine(slots=2, max_len=1024)`` workspace through
+    ``Migrator``: in full after 6 steps, then incrementally after one
+    more; the continuation equals the unmigrated run's."""
+    from repro_torch import compression
+    from repro_torch.core.migration import Migrator
+    from repro_torch.core.workspace import AgentWorkspace
+    from repro_torch.serving.engine import Engine, Request
+
+    def start():
+        eng = Engine(cfg, params, slots=2, max_len=1024, seed=SEED,
+                     device="cuda")
+        rng = np.random.default_rng(SEED + 9)
+        reqs = [Request("w0", rng.integers(0, cfg.vocab_size, 512),
+                        max_new_tokens=24),
+                Request("w1", rng.integers(0, cfg.vocab_size, 300),
+                        max_new_tokens=24, temperature=0.7, top_k=16)]
+        tally.add(eng, *reqs)
+        return eng, reqs
+
+    ref, want = start()
+    tally.drain(ref)
+    del ref
+    src, reqs = start()
+    for _ in range(6):
+        tally.step(src)
+    session, gid = _session(cfg)
+    mig = Migrator()
+    target = Engine(cfg, params, slots=2, max_len=1024, seed=9,
+                    device="cuda")
+    for incremental in (False, True):
+        if incremental:
+            tally.step(src)
+        _, rep = mig.migrate(AgentWorkspace.from_engine(src, gid), session,
+                             target, incremental=incremental)
+        torch.cuda.synchronize()
+        log(f"migrate workspace ({'incremental' if incremental else 'full'}"
+            f"): raw {rep.raw_bytes} bytes, wire {rep.wire_bytes} bytes "
+            f"({compression.BACKEND}), delta_fraction "
+            f"{rep.delta_fraction:.6f}; checkpoint {rep.checkpoint_s:.4f} "
+            f"s, compress {rep.compress_s:.4f} s, transfer "
+            f"{rep.transfer_s:.4f} s (simulated 1 Gbps), restore "
+            f"{rep.restore_s:.4f} s (host seconds on the card's machine, "
+            f"{gpu_line()})")
+    outs = {r.rid: list(r.output) for r in target.requests.values()}
+    while target.requests:
+        for rid, t in tally.step(target).items():
+            outs[rid].append(t)
+    if outs != {r.rid: r.output for r in want}:
+        raise AssertionError(f"workspace continuation {outs} != unmigrated "
+                             f"{[r.output for r in want]}")
+    log("migrate workspace: Engine(slots=2, max_len=1024) moved in full "
+        "after 6 steps and incrementally after 7 into Engine(seed 9); both "
+        "requests (greedy and sampled) finished with the unmigrated run's "
+        "24 tokens bit for bit")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: rwkv6-7b on the dense Engine at full width
 # ---------------------------------------------------------------------------
 
@@ -1389,6 +1681,49 @@ def rwkv_state_finding(cfg, params, prompt):
                 f"(relative {max_err(s_par, state) / top:.3e})")
 
 
+def rwkv_hop(cfg, params, geo) -> list[int]:
+    """One rwkv slot (the O(1) workspace: per layer a (64, 64, 64) fp32
+    state, x_tm and x_cm) moved after 8 decode steps into a second
+    engine (seed 9), slot 0 -> 3; its tokens must equal the unmigrated
+    run's.  Returns the prompt lengths its prefills ran."""
+    from repro_torch.serving.engine import Engine, Request
+
+    def reqs():
+        rng = np.random.default_rng(SEED + 10)
+        return [Request("h0", rng.integers(0, cfg.vocab_size, 512),
+                        max_new_tokens=24, temperature=0.7, top_k=16),
+                Request("h1", rng.integers(0, cfg.vocab_size, 37),
+                        max_new_tokens=24)]
+
+    ref = Engine(cfg, params, **geo)
+    want = reqs()
+    _serve(ref, want)
+    del ref
+    src = Engine(cfg, params, **geo)
+    mine = reqs()
+    for r in mine:
+        if not src.add_request(r):
+            raise AssertionError(f"{r.rid} refused with a slot free")
+    for _ in range(8):
+        src.step()
+    dst = Engine(cfg, params, **{**geo, "seed": 9})
+    moved, snap = slot_hop("rwkv migrate", src, mine[0].slot, dst, cfg,
+                           into=3)
+    _serve(dst, [])
+    _serve(src, [])
+    got = [moved.output, mine[1].output]
+    if got != [r.output for r in want]:
+        raise AssertionError(f"rwkv hop: h0, h1 {got} != unmigrated "
+                             f"{[r.output for r in want]}")
+    state = snap.arrays.caches[0][0]["rwkv"]["state"]
+    log(f"rwkv migrate: h0 (512 prompt tokens, sampled) moved from slot "
+        f"{mine[0].slot} to slot 3 of Engine(seed 9) after 8 steps, state "
+        f"{tuple(state.shape)} {state.dtype}: 24 tokens equal the "
+        f"unmigrated run's bit for bit; h1, left in the source, equals its "
+        f"unmigrated run too")
+    return [512, 37, 512, 37]
+
+
 def run_rwkv(cfg, params) -> dict:
     """rwkv6-7b on ``Engine(slots=4, max_len=2048)``: four requests of
     37, 512, 1000 and 1536 prompt tokens, 32 new each, greedy and sampled
@@ -1433,9 +1768,11 @@ def run_rwkv(cfg, params) -> dict:
     if again.output != ref.output or len(ref.output) != 16:
         raise AssertionError(f"reused slot {again.output} != fresh engine "
                              f"{ref.output}")
+    del fresh
+    hop = rwkv_hop(cfg, params, geo)
     counts = read_counts()
     layers = cfg.num_layers
-    prefills = list(lens) + [len(fifth), len(fifth)]
+    prefills = list(lens) + [len(fifth), len(fifth)] + hop
     want = layers * sum(len(rwkv_runs(T)) for T in prefills)
     if counts["rwkv6_scan"] != want or any(
             n for k, n in counts.items() if k != "rwkv6_scan"):
@@ -1549,6 +1886,7 @@ def main() -> int:
     drive("one_program", run_one_program, cfg, params)
     drive("spec_generate", run_spec_generate, cfg, params, draft)
     drive("self_draft", run_self_draft, cfg, params)
+    drive("migrate", run_migrate, cfg, params)
     del params, draft
     torch.cuda.empty_cache()
     rcfg = get("rwkv6-7b")

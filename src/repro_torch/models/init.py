@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import from_host, host_array
 from repro_torch.device import resolve
 from repro_torch.models.schema import ParamDef, model_schema, tree_map
 
@@ -71,33 +71,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # weight bridge: the JAX parameter tree as numpy arrays <-> torch
 # ---------------------------------------------------------------------------
 
-def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
-    a = np.asarray(a)
-    # bf16 crosses as its bit pattern: a uint16 view (or an ml_dtypes
-    # bfloat16 array, which torch.from_numpy refuses)
-    if a.dtype.name == "bfloat16":
-        a = a.view(np.uint16)
-    a = np.array(a)              # a writable, contiguous copy for torch
-    if a.dtype == np.uint16:
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
-            device)
-    return torch.from_numpy(a).to(device)
-
-
 def params_from_numpy(tree, device="cuda"):
     """The JAX parameter tree (numpy leaves; bf16 as uint16 views) as
     torch tensors on ``device``, with identical shapes and key paths."""
     dev = resolve(device)
-    return tree_map(lambda a: _from_numpy(a, dev), tree)
-
-
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
+    return tree_map(lambda a: from_host(a, dev), tree)
 
 
 def params_to_numpy(tree):
     """Reverse of ``params_from_numpy``: numpy leaves, bf16 as uint16."""
-    return tree_map(_to_numpy, tree)
+    return tree_map(host_array, tree)

@@ -14,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from repro_torch.configs.base import BlockDef, LayerSpec, ModelConfig
+from repro_torch.core.tree import flatten, tree_map  # noqa: F401
 
 
 @dataclass(frozen=True)
@@ -202,24 +203,3 @@ def model_schema(cfg: ModelConfig) -> dict:
 
 def is_def(x) -> bool:
     return isinstance(x, ParamDef)
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def flatten(tree, prefix: tuple = ()) -> list[tuple[tuple, object]]:
-    """``[(path, leaf)]`` over a tree of dicts and lists, dict keys in
-    sorted order (the order ``jax.tree`` flattens a dict in)."""
-    if isinstance(tree, dict):
-        return [item for k in sorted(tree)
-                for item in flatten(tree[k], prefix + (k,))]
-    if isinstance(tree, list):
-        return [item for i, v in enumerate(tree)
-                for item in flatten(v, prefix + (i,))]
-    return [(prefix, tree)]

@@ -23,10 +23,13 @@ every cache back afterwards.  A request starts from the zero recurrent
 state: ``add_request`` clears the slot's rwkv caches before its prefill
 (the JAX engine starts from whatever the slot's last request left).
 The migration surface (``extract_slot``, ``inject_slot``,
-``slot_like``) and, on models with recurrent mixers, the verify modes
-and ``rollback_slot`` are later slices (ROADMAP Queue 1).
-This module also carries the ``Request`` record and its wire form,
-which ``serving.paged`` imports.
+``slot_like``) moves one slot's cache rows (attention KV or recurrent
+state alike), tokens, position, RNG and policy as a ``SlotSnapshot``
+(wire version 1, ``core.migration``).  On models with recurrent mixers
+the verify modes and ``rollback_slot`` are a later slice (ROADMAP
+Queue 1 item 7).  This module also carries the ``Request`` record, its
+wire form and the slot snapshot types, which ``serving.paged``
+imports.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import leaves, register_node, spec_of, tree_map
 from repro_torch.device import resolve
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import check_domain
@@ -96,6 +100,7 @@ def request_from_dict(d: dict) -> Request:
     return req
 
 
+@register_node
 @dataclass
 class EngineState:
     """Everything the decode loop carries across steps (the workspace).
@@ -111,6 +116,51 @@ class EngineState:
     step_count: int                  # total decode steps executed
     temperature: torch.Tensor        # (B,) float32 per-slot temperature
     top_k: torch.Tensor              # (B,) int32 per-slot top-k (0 = all)
+
+
+@register_node
+@dataclass
+class SlotArrays:
+    """One slot's share of an engine state (batch dim sliced away).
+    Tensors are copies on the engine's device, except ``rng``: the
+    slot's ``(seed, counter)`` pair, (2,) int64 on the CPU."""
+    caches: list                     # per-leaf (R, ...) cache rows
+    tokens: torch.Tensor             # (max_len,) or (n_live * page_size,)
+    position: torch.Tensor           # ()
+    last_token: torch.Tensor         # ()
+    rng: torch.Tensor                # (2,) int64, CPU
+    temperature: torch.Tensor        # ()
+    top_k: torch.Tensor              # ()
+
+
+@dataclass
+class SlotSnapshot:
+    """A single in-flight request, detached from its engine: the unit of
+    per-request live migration (one slot leaves a draining engine and
+    resumes -- bit-identically -- in any free slot of a peer engine)."""
+    arrays: SlotArrays
+    request: dict                    # request_to_dict form
+    config_name: str
+    step: int                        # donor step_count at extraction
+    trace: Optional[dict] = None     # tracer wire context (pack_slot meta)
+    version: int = 1                 # wire format: 1 = dense cache rows,
+    #                                  2 = live pages only (paged engine),
+    #                                  3 = suffix pages + prefix-chain
+    #                                      hashes (shared-prefix moves)
+    page_size: int = 0               # v2/v3 only: tokens per KV page
+    prefix: Optional[dict] = None    # v3 only: {"tenant", "chain", "len"}
+
+    @property
+    def rid(self) -> str:
+        return self.request["rid"]
+
+    @property
+    def sensitivity(self) -> str:
+        return self.request["sensitivity"]
+
+    @property
+    def remaining_tokens(self) -> int:
+        return self.request["max_new_tokens"] - len(self.request["output"])
 
 
 def _slot_generator(rng: torch.Generator, slot: int) -> torch.Generator:
@@ -281,21 +331,85 @@ class Engine:
         self.requests.pop(slot, None)
         self.state.active[slot] = False
 
-    # -- per-slot live migration (a later slice) ---------------------------
-    def extract_slot(self, slot: int, *, keep: bool = False):
-        raise NotImplementedError(
-            "Engine.extract_slot is not ported yet: ROADMAP Queue 1 item 4 "
-            "(migration wire and workspace)")
+    # -- per-slot live migration ---------------------------------------------
+    def extract_slot(self, slot: int, *, keep: bool = False) -> SlotSnapshot:
+        """Detach one in-flight request as a ``SlotSnapshot``.
 
-    def inject_slot(self, snap, slot: int | None = None):
-        raise NotImplementedError(
-            "Engine.inject_slot is not ported yet: ROADMAP Queue 1 item 4 "
-            "(migration wire and workspace)")
+        The snapshot copies the slot's cache rows (KV or recurrent
+        state), token row, position, sampling rng and per-slot policy --
+        everything needed to resume this request bit-identically in
+        *any* free slot of a compatible engine.  Unless ``keep``, the
+        slot is drained (request removed, slot deactivated) as in a live
+        migration's departure side; ``keep=True`` is the
+        shadow-checkpoint (replica sync) form."""
+        req = self.requests[slot]
+        snap = SlotSnapshot(
+            arrays=_slot_arrays(self.state, slot, copy=True),
+            request=request_to_dict(req),
+            config_name=self.cfg.name,
+            step=int(self.state.step_count))
+        if not keep:
+            self.retire(slot)
+        return snap
 
-    def slot_like(self):
-        raise NotImplementedError(
-            "Engine.slot_like is not ported yet: ROADMAP Queue 1 item 4 "
-            "(migration wire and workspace)")
+    def inject_slot(self, snap: SlotSnapshot,
+                    slot: int | None = None) -> Request:
+        """Resume a migrated request in a free slot (any index).
+
+        The donor's slot index is irrelevant: rows are written into
+        whatever slot is free here, and decode continues bit-identically
+        because every piece of cross-step state rides in the snapshot.
+        Every check (exact config name -- cache-row geometry must be
+        identical --, max_len, wire version, a free slot in range, cache
+        leaves of this engine's count, shapes and dtypes) raises
+        ``ValueError`` before any state is written."""
+        if snap.config_name != self.cfg.name:
+            raise ValueError(f"config mismatch: {self.cfg.name} != "
+                             f"{snap.config_name}")
+        if snap.version != 1:
+            raise ValueError(
+                f"Engine.inject_slot needs a v1 (dense) snapshot, got "
+                f"v{snap.version}; route paged blobs to a PagedEngine")
+        a = snap.arrays
+        if a.tokens.shape[-1] != self.max_len:
+            raise ValueError(f"max_len mismatch: {a.tokens.shape[-1]} != "
+                             f"{self.max_len}")
+        if slot is None:
+            free = self.free_slots
+            if not free:
+                raise ValueError("no free slot to inject into")
+            slot = free[0]
+        if not 0 <= slot < self.slots:
+            raise ValueError(f"slot {slot} out of range [0, {self.slots})")
+        if slot in self.requests:
+            raise ValueError(f"slot {slot} busy")
+        s = self.state
+        rows = _slot_arrays(s, slot, copy=False)
+        if len(leaves(rows.caches)) != len(leaves(a.caches)):
+            raise ValueError(f"cache leaf count {len(leaves(a.caches))} != "
+                             f"{len(leaves(rows.caches))}")
+        for full, row in zip(leaves(rows.caches), leaves(a.caches)):
+            if full.shape != row.shape or full.dtype != row.dtype:
+                raise ValueError(f"cache row {tuple(row.shape)} {row.dtype} "
+                                 f"!= {tuple(full.shape)} {full.dtype}")
+        for full, row in zip(leaves(rows.caches), leaves(a.caches)):
+            full.copy_(row)
+        s.tokens[slot] = a.tokens.to(s.tokens.device)
+        s.positions[slot] = a.position.to(s.positions.device)
+        s.last_token[slot] = a.last_token.to(s.last_token.device)
+        s.active[slot] = True
+        s.rng[slot] = a.rng.to(s.rng.device)
+        s.temperature[slot] = a.temperature.to(s.temperature.device)
+        s.top_k[slot] = a.top_k.to(s.top_k.device)
+        req = request_from_dict(snap.request)
+        req.slot = slot
+        self.requests[slot] = req
+        return req
+
+    def slot_like(self) -> SlotArrays:
+        """``LeafSpec``s (shape, dtype, device) of one slot's arrays: the
+        template ``unpack_slot`` reads a blob against."""
+        return tree_map(spec_of, _slot_arrays(self.state, 0, copy=False))
 
     # -- speculative verify tier --------------------------------------------
     @property
@@ -314,7 +428,7 @@ class Engine:
         if self._recurrent:
             raise NotImplementedError(
                 f"Engine.{what} on a model with recurrent mixers "
-                f"({self.cfg.name}) is not ported: ROADMAP Queue 1 item 9 "
+                f"({self.cfg.name}) is not ported: ROADMAP Queue 1 item 7 "
                 "(recurrent-state rollback)")
 
     def verify_slots(self, drafts: dict[int, list[int]], *,
@@ -493,6 +607,25 @@ class Engine:
             s.tokens[slot, new_pos - 1] = commit_token
             s.last_token[slot] = commit_token
         s.positions[slot] = new_pos
+
+
+# ---------------------------------------------------------------------------
+# slot slicing (the migration surface)
+# ---------------------------------------------------------------------------
+
+def _slot_arrays(state: EngineState, slot: int, *, copy: bool) -> SlotArrays:
+    """One slot of the batched state (a cache leaf's batch dim is axis 1,
+    after the stacked repeats).  ``copy=False`` gives views into the
+    state; a snapshot takes copies, since the state changes in place.
+    The rng row stays on the CPU, where the state keeps it."""
+    arrays = SlotArrays(caches=tree_map(lambda a: a[:, slot], state.caches),
+                        tokens=state.tokens[slot],
+                        position=state.positions[slot],
+                        last_token=state.last_token[slot],
+                        rng=state.rng[slot],
+                        temperature=state.temperature[slot],
+                        top_k=state.top_k[slot])
+    return tree_map(torch.clone, arrays) if copy else arrays
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,15 @@ scatters its K/V into the row's reserved pages; every decode step runs
 the paged-decode kernel over the pools in place.  The decode batch width
 (``rows``) is fixed; rows carry no KV memory of their own.
 
-This slice ports the cold path.  The prefix cache (``prefix_cache=True``,
-suffix prefill, warm start, donation, pre-warm) and the migration
-surface (``extract_slot`` / ``inject_slot`` / ``rollback_slot``) are
-later slices (ROADMAP Queue 1).
+A request moves between engines on wire version 2 (``extract_slot`` /
+``inject_slot``): only its live pages travel, position-ordered and free
+of this engine's pool indices, so the destination's pool may differ in
+size, occupancy and seed as long as the page size and the program
+geometry match (the page-level contract).  The speculative surface
+(``rollback_slot``, ``_force_slot_token``, ``add_request(committed=)``)
+follows the dense engine's.  The prefix cache (``prefix_cache=True``,
+suffix prefill, warm start, donation, pre-warm, and with it the v3
+suffix-only wire) is a later slice (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from repro_torch.kernels.ops import check_domain
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.layers import make_paged_attn_cache
 from repro_torch.models.model import forward
-from repro_torch.serving.engine import Request
+from repro_torch.core.tree import LeafSpec, register_node
+from repro_torch.serving.engine import (Request, SlotArrays, SlotSnapshot,
+                                        request_from_dict, request_to_dict)
 from repro_torch.serving.program_cache import get_programs
 from repro_torch.serving.sampling import rng_state, sample
 
@@ -107,6 +114,7 @@ class PageAllocator:
             audit()
 
 
+@register_node
 @dataclass
 class PagedEngineState:
     """Decode-loop state.  Tensors live on the engine's device and are
@@ -134,7 +142,7 @@ class PagedEngine:
         if prefix_cache:
             raise NotImplementedError(
                 "PagedEngine(prefix_cache=True) is not ported yet: ROADMAP "
-                "Queue 1 item 'Prefix cache'")
+                "Queue 1 item 2 (prefix cache)")
         if not (all(ls.mixer in ("attn", "local")
                     for b in cfg.blocks for ls in b.layers)
                 and not cfg.cross_attention and not cfg.encoder_blocks):
@@ -240,10 +248,15 @@ class PagedEngine:
         pt = self.state.page_table[row].cpu().tolist()
         return [p for p in pt if p >= 0]
 
-    def add_request(self, req: Request) -> bool:
+    def add_request(self, req: Request, *,
+                    committed: list[int] | None = None) -> bool:
         """Admit iff a decode row is free AND the reservation fits the
         free page budget -- reserving up front means an admitted request
-        can never deadlock mid-decode waiting for pages."""
+        can never deadlock mid-decode waiting for pages.
+
+        ``committed`` is the lossy cross-tier restore path, as on the
+        dense engine: the row prefills prompt + the committed tokens,
+        which become the request's output prefix."""
         free = self.free_slots
         if not free:
             return False
@@ -252,6 +265,9 @@ class PagedEngine:
             raise ValueError(f"request {req.rid!r} needs {need} tokens > "
                              f"max_len {self.max_len}")
         prefix = np.asarray(req.prompt, np.int32)
+        if committed:
+            prefix = np.concatenate(
+                [prefix, np.asarray(committed, np.int32)])
         plen = len(prefix)
         check_domain(plen)               # refuse before any page moves
         pages = self.allocator.alloc(self._pages_for(need), req.rid)
@@ -260,6 +276,8 @@ class PagedEngine:
         row = free[0]
         req.slot = row
         self.requests[row] = req
+        if committed:
+            req.output[:] = list(committed)
         pt_row = np.full((self.np_pages,), -1, np.int32)
         pt_row[:len(pages)] = pages
         s = self.state
@@ -298,6 +316,195 @@ class PagedEngine:
             self.allocator.free(pages)
         self.state.page_table[row] = -1
         self.state.active[row] = False
+
+    # -- per-slot live migration (wire v2: live pages) -----------------------
+    def extract_slot(self, slot: int, *, keep: bool = False,
+                     suffix_only: bool = False) -> SlotSnapshot:
+        """Detach one request shipping only its live pages (wire v2).
+
+        The payload's cache leaves are (R, n_live, page_size, KV, Dh)
+        where ``n_live = ceil(position / page_size)`` -- position-ordered
+        pages, free of this engine's pool indices -- plus the token
+        prefix trimmed to the live region.  Unless ``keep``, the row is
+        retired and its pages freed."""
+        if suffix_only:
+            raise NotImplementedError(
+                "extract_slot(suffix_only=True) (wire v3) needs the prefix "
+                "cache, which is not ported yet: ROADMAP Queue 1 item 2")
+        req = self.requests[slot]
+        s = self.state
+        pos = int(s.positions[slot])
+        ps = self.page_size
+        n_live = max(1, -(-pos // ps))
+        live = torch.tensor(self._row_pages(slot)[:n_live], dtype=torch.long,
+                            device=self.device)
+        arrays = SlotArrays(
+            caches=[[{"attn": {"k": layer["attn"]["k_pool"][:, live],
+                               "v": layer["attn"]["v_pool"][:, live]}}
+                     for layer in grp] for grp in s.caches],
+            tokens=s.tokens[slot, :n_live * ps].clone(),
+            position=s.positions[slot].clone(),
+            last_token=s.last_token[slot].clone(),
+            rng=s.rng[slot].clone(),
+            temperature=s.temperature[slot].clone(),
+            top_k=s.top_k[slot].clone())
+        snap = SlotSnapshot(arrays=arrays, request=request_to_dict(req),
+                            config_name=self.cfg.name,
+                            step=int(s.step_count), version=2, page_size=ps)
+        if not keep:
+            self.retire(slot)
+        return snap
+
+    def inject_slot(self, snap: SlotSnapshot,
+                    slot: int | None = None) -> Request:
+        """Resume a v2 snapshot: allocate a fresh reservation of
+        ``max(pages_for(prompt + max_new), n_live)`` pages here, scatter
+        the live pages into it, pad the token prefix out to this
+        engine's max_len and write the row's page table.  Page ids are
+        engine-local, so the donor's and destination's pools never need
+        to line up -- only the page size and the program geometry do.
+        Every refusal raises before any page moves: ``ValueError`` for a
+        snapshot this engine cannot take, ``RuntimeError`` when no row
+        or page budget is free."""
+        if snap.config_name != self.cfg.name:
+            raise ValueError(f"config mismatch: {self.cfg.name} != "
+                             f"{snap.config_name}")
+        if snap.version not in (2, 3):
+            raise ValueError(
+                f"PagedEngine.inject_slot needs a v2/v3 (paged) "
+                f"snapshot, got v{snap.version}; route dense blobs "
+                f"through lossy re-prefill")
+        if snap.page_size != self.page_size:
+            raise ValueError(
+                f"page_size mismatch: blob {snap.page_size} != engine "
+                f"{self.page_size} (cross-geometry moves are lossy)")
+        req = request_from_dict(snap.request)
+        if snap.version == 3:
+            raise ValueError(
+                f"v3 (suffix-only) blob for {req.rid!r} but this "
+                "engine has no prefix cache; the sender must fall "
+                "back to full v2")
+        a = snap.arrays
+        need = len(req.prompt) + req.max_new_tokens
+        n_live = self._check_pages(a)
+        if need > self.max_len or n_live * self.page_size > self.max_len:
+            raise ValueError(
+                f"{req.rid!r} needs {need} tokens and {n_live} live pages; "
+                f"this engine's max_len is {self.max_len}")
+        if slot is None:
+            free = self.free_slots
+            if not free:
+                raise RuntimeError(f"no free row to inject {req.rid!r} into")
+            slot = free[0]
+        if not 0 <= slot < self.rows:
+            raise ValueError(f"row {slot} out of range [0, {self.rows})")
+        if slot in self.requests:
+            raise RuntimeError(f"row {slot} busy")
+        pages = self.allocator.alloc(max(self._pages_for(need), n_live),
+                                     req.rid)
+        if pages is None:
+            raise RuntimeError(
+                f"no free page budget to inject {req.rid!r} into")
+        s = self.state
+        live = torch.tensor(pages[:n_live], dtype=torch.long,
+                            device=self.device)
+        for grp, pgrp in zip(s.caches, a.caches):
+            for layer, pay in zip(grp, pgrp):
+                p, q = layer["attn"], pay["attn"]
+                p["k_pool"][:, live] = q["k"]
+                p["v_pool"][:, live] = q["v"]
+        pt_row = np.full((self.np_pages,), -1, np.int32)
+        pt_row[:len(pages)] = pages
+        s.page_table[slot] = torch.from_numpy(pt_row).to(self.device)
+        s.tokens[slot] = 0
+        s.tokens[slot, :a.tokens.shape[0]] = a.tokens.to(self.device)
+        s.positions[slot] = a.position.to(self.device)
+        s.last_token[slot] = a.last_token.to(self.device)
+        s.active[slot] = True
+        s.rng[slot] = a.rng.to(s.rng.device)
+        s.temperature[slot] = a.temperature.to(self.device)
+        s.top_k[slot] = a.top_k.to(self.device)
+        req.slot = slot
+        self.requests[slot] = req
+        return req
+
+    def _check_pages(self, a: SlotArrays) -> int:
+        """The payload's live-page count; refuses one whose layers, page
+        leaves or token prefix do not fit this engine's pools exactly
+        (no broadcast, no cast)."""
+        if [len(g) for g in a.caches] != [len(g) for g in self.state.caches]:
+            raise ValueError(
+                f"layer mismatch: blob {[len(g) for g in a.caches]} != "
+                f"engine {[len(g) for g in self.state.caches]}")
+        n_live = a.caches[0][0]["attn"]["k"].shape[1]
+        for grp, pgrp in zip(self.state.caches, a.caches):
+            for layer, pay in zip(grp, pgrp):
+                for name in ("k", "v"):
+                    pool, leaf = layer["attn"][f"{name}_pool"], \
+                        pay["attn"][name]
+                    want = (pool.shape[0], n_live) + tuple(pool.shape[2:])
+                    if tuple(leaf.shape) != want or leaf.dtype != pool.dtype:
+                        raise ValueError(
+                            f"live-page leaf {name} {tuple(leaf.shape)} "
+                            f"{leaf.dtype} != {want} {pool.dtype}")
+        if tuple(a.tokens.shape) != (n_live * self.page_size,):
+            raise ValueError(f"token prefix {tuple(a.tokens.shape)} != "
+                             f"({n_live * self.page_size},)")
+        return n_live
+
+    def slot_like(self) -> SlotArrays:
+        """``LeafSpec`` template for v2 wire deserialization.  Only the
+        structure, dtypes and devices matter (``deserialize_tree`` takes
+        shapes from the blob -- the live-page axis varies per
+        snapshot), so the page axis here is a placeholder 1."""
+        ps, KV, Dh = (self.page_size, self.cfg.num_kv_heads,
+                      self.cfg.head_dim)
+        dev = self.device
+        dt = torch_dtype(self.cfg.dtype)
+
+        def layer(repeats):
+            sds = LeafSpec((repeats, 1, ps, KV, Dh), dt, dev)
+            return {"attn": {"k": sds, "v": sds}}
+
+        return SlotArrays(
+            caches=[[layer(block.repeats) for _ in block.layers]
+                    for block in self.cfg.blocks],
+            tokens=LeafSpec((ps,), torch.int32, dev),
+            position=LeafSpec((), torch.int32, dev),
+            last_token=LeafSpec((), torch.int32, dev),
+            rng=LeafSpec((2,), torch.int64, self.state.rng.device),
+            temperature=LeafSpec((), torch.float32, dev),
+            top_k=LeafSpec((), torch.int32, dev))
+
+    # -- speculative tier surface -------------------------------------------
+    @property
+    def supports_wide_verify(self) -> bool:
+        return False                 # single-token decode program only
+
+    def _force_slot_token(self, slot: int, token: int):
+        """Overwrite the token a decode step just emitted for ``slot``
+        (teacher-forcing: the next step consumes ``token`` instead)."""
+        s = self.state
+        s.tokens[slot, (s.positions[slot] - 1).long()] = token
+        s.last_token[slot] = token
+
+    def rollback_slot(self, slot: int, drafted: int, accepted: int,
+                      commit_token: int | None = None):
+        """The dense engine's contract: stale page contents past the
+        rewound position stay behind but are invisible (the attend mask
+        cuts at ``position``) and are rewritten in place."""
+        s = self.state
+        p0 = int(s.positions[slot]) - drafted
+        assert p0 >= 0, (slot, drafted)
+        if commit_token is None:
+            new_pos = p0
+            s.last_token[slot] = s.tokens[slot, max(p0 - 1, 0)]
+        else:
+            assert 0 <= accepted <= drafted
+            new_pos = p0 + accepted + 1
+            s.tokens[slot, new_pos - 1] = commit_token
+            s.last_token[slot] = commit_token
+        s.positions[slot] = new_pos
 
     def check(self):
         """Engine-level conservation audit: allocator invariants and the

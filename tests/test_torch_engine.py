@@ -126,10 +126,10 @@ def test_capacity_api_refusals_and_program_sharing():
     assert teng.add_request(Request("b", np.arange(3, 9), max_new_tokens=8))
     assert not teng.add_request(Request("c", np.arange(4), max_new_tokens=2))
     assert not teng.can_admit(8) and teng.free_token_budget == 0
-    for fn in (lambda: teng.extract_slot(0), lambda: teng.inject_slot(None),
-               teng.slot_like):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            fn()
+    snap = teng.extract_slot(0, keep=True)      # the migration surface
+    with pytest.raises(ValueError, match="no free slot"):
+        teng.inject_slot(snap)
+    assert teng.slot_like().tokens.shape == (64,)
     with pytest.raises(AssertionError, match="overruns"):
         teng.verify_slots({0: [1, 2]}, width=60)
     assert teng.supports_wide_verify and not teng.paged

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module (and
-``chip_smoke.py``) loads neither JAX nor the JAX package, and the smoke
+``chip_smoke.py``) loads neither JAX nor the JAX package, nor the
+``msgpack`` and ``ml_dtypes`` wheels the JAX wire uses, and the smoke
 script refuses to run without a CUDA card."""
 
 import os
@@ -25,14 +26,19 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                    "ml_dtypes"))
 missing = sorted({{"repro_torch.core.speculation", "repro_torch.core.validation",
                   "repro_torch.serving.engine", "repro_torch.kernels.spec_verify",
                   "repro_torch.kernels.decode_attention",
                   "repro_torch.kernels.rwkv6_scan",
                   "repro_torch.kernels.int8_matmul",
                   "repro_torch.models.rwkv6",
-                  "repro_torch.configs.rwkv6_7b"}} - set(names))
+                  "repro_torch.configs.rwkv6_7b",
+                  "repro_torch.core.migration", "repro_torch.core.workspace",
+                  "repro_torch.core.channel", "repro_torch.core.attestation",
+                  "repro_torch.core.crypto", "repro_torch.core.msgpack_subset",
+                  "repro_torch.compression"}} - set(names))
 assert not missing, missing
 print(len(names), bad)
 """

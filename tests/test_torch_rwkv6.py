@@ -398,7 +398,7 @@ def test_recurrent_verify_and_rollback_raise_and_long_prompts_admit():
                  lambda: teng.verify_slots_stepwise({0: [1]}),
                  lambda: teng.verify_slots_distribution(
                      {0: [1]}, {0: q}, rng=torch.Generator())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             call()
     teng.step()
     assert len(r.output) == 1
