@@ -10,7 +10,8 @@ the result line):
   2. build   : the six CUDA kernels built from
                ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel
   3. kernels : each kernel against its plain PyTorch version on the card
-               at the main path's shapes, with the tolerance, and its time
+               at the main path's shapes (paged decode also over pages
+               shared across rows), with the tolerance, and its time
                beside the plain version's, the library call's and the bound
                (``int8_matmul``, which no model calls, at rwkv6-7b's
                channel-mix shapes wk and wv at M = 4 and 1536, each on the
@@ -52,6 +53,15 @@ the result line):
                             bit for bit; then a whole ``Engine(slots=2,
                             max_len=1024)`` workspace through ``Migrator``
                             in full and incrementally
+               prefix       ``PagedEngine(prefix_cache=True)``: a 448-token
+                            shared prompt; a cold donor, a full hit (no
+                            flash launch, the donor's tokens bit for bit),
+                            a 448-token partial hit whose 40-token suffix
+                            runs through paged decode, another tenant's
+                            miss, decoding side by side over shared pages
+                            held byte-equal; the partial hit against a
+                            cold run and a second warm run; pre-warm and
+                            the v3 suffix-only hop against v2's bytes
                then rwkv6-7b at full width (bf16, seed 0; llama freed):
                rwkv         ``Engine(slots=4, max_len=2048)``: four
                             requests, rwkv6_scan launched 32 times per
@@ -333,6 +343,45 @@ def check_paged(da, gen) -> dict:
             f"max_abs_err={err:.3e}, worst row at {frac:.2f} x its limit "
             f"(4 bf16 ulps of the row's max |ref|, at most {BF16_TOL}), "
             f"dead row exactly 0")
+
+    # pages shared across rows, as the prefix cache maps them: every row
+    # leads with the same 28 pages, then private ones; then a B=1 row
+    # (a suffix-prefill token) mid-page in a copy of a cached tail page
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kp, vp = _pools(P, ps, KV, D, gen)
+    perm = list(rng.permutation(P))
+    shared = [perm.pop() for _ in range(28)]
+    pt = np.full((B, NP), -1, np.int32)
+    pos = np.array([469, 470, 488, 500], np.int32)
+    for b in range(B):
+        pt[b, :33] = shared + [perm.pop() for _ in range(5)]
+    tail, copy = perm.pop(), perm.pop()
+    kp[copy] = kp[tail]
+    vp[copy] = vp[tail]
+    pt1 = np.full((1, NP), -1, np.int32)
+    pt1[0, :30] = shared + [copy, perm.pop()]
+    q1 = torch.randn((1, 1, H, D), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    for label, qq, tab, at in (("shared pages B=4", q, pt, pos),
+                               ("after a copied page B=1", q1, pt1,
+                                np.array([28 * ps + 5], np.int32))):
+        tab = torch.from_numpy(tab).cuda()
+        at = torch.from_numpy(at).cuda()
+        o = da.paged_decode_attention(qq, kp, vp, tab, at)
+        ref = da.paged_plain(qq, kp, vp, tab, at)
+        err, frac = row_err(o, ref, slice(0, qq.shape[0]))
+        worst = max(worst, err)
+        if not torch.isfinite(o).all() or frac > 1.0:
+            raise AssertionError(f"paged {label}: max_abs_err {err} at "
+                                 f"{frac:.2f} x its row's limit")
+        if not torch.equal(o, da.paged_decode_attention(qq, kp, vp, tab,
+                                                        at)):
+            raise AssertionError(f"paged {label}: a second call gave "
+                                 "other bits")
+        log(f"paged_decode {label}: positions {at.tolist()}, 28 leading "
+            f"pages shared, max_abs_err={err:.3e}, worst row at "
+            f"{frac:.2f} x its limit; bit-equal on a second call")
 
     # the timed shape: 4 live rows near position 1000, pools rotated so
     # each call finds its pages cold in the 50 MB L2, as a layer would
@@ -1364,7 +1413,7 @@ def _session(cfg):
                            {gid}), gid
 
 
-def slot_hop(label, src, slot, dst, cfg, *, into=None):
+def slot_hop(label, src, slot, dst, cfg, *, into=None, suffix_only=False):
     """One request's hop: extract_slot -> pack_slot -> compress -> the
     attested, sealed transfer -> decompress -> unpack_slot -> repack_slot
     -> inject_slot.  Prints the bytes and each stage's host seconds on
@@ -1374,7 +1423,8 @@ def slot_hop(label, src, slot, dst, cfg, *, into=None):
     session, gid = _session(cfg)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    snap = src.extract_slot(slot)
+    snap = (src.extract_slot(slot, suffix_only=True) if suffix_only
+            else src.extract_slot(slot))
     blob = pack_slot(snap)
     checkpoint_s = time.perf_counter() - t
     t = time.perf_counter()
@@ -1419,19 +1469,36 @@ def _resident(cfg):
 
 
 class Tally:
-    """The prefills and decode steps the ``migrate`` path drives, by
-    engine kind: its launches must be exactly 24 flash_attention a
-    prefill and 24 paged / dense decode kernels a step, so a hop that
-    re-prefilled or left the kernels would show."""
+    """The prefills and decode forwards a path drives, by engine kind:
+    its launches must be exactly 24 flash_attention a cold prefill and 24
+    paged / dense decode kernels a decode step, a warm suffix token (one
+    batch-1 decode forward each) and a logit probe (``decode_logits``),
+    so a hop that re-prefilled, a warm admission that ran flash or a path
+    that left the kernels would show."""
 
-    def __init__(self):
+    def __init__(self, label: str):
+        self.label = label
         self.prefills, self.steps = 0, {"paged": 0, "dense": 0}
+        self.suffix, self.probes = 0, 0
 
     def add(self, eng, *reqs):
+        """Admit each request; a cold one is a prefill, a partial hit
+        forwards its uncovered suffix token by token, a full hit runs
+        nothing."""
         for r in reqs:
             if not eng.add_request(r):
                 raise AssertionError(f"{r.rid} refused with a slot free")
-            self.prefills += 1
+            hit = getattr(eng, "last_prefix_hit", 0)
+            if hit == 0:
+                self.prefills += 1
+            else:
+                self.suffix += len(r.prompt) - hit
+
+    def probe(self, eng):
+        """One decode step's logits on a copy of ``eng``'s pools."""
+        from repro_torch.serving import paged
+        self.probes += 1
+        return decode_logits(eng, paged)
 
     def step(self, eng) -> dict:
         from repro_torch.serving.paged import PagedEngine
@@ -1447,15 +1514,17 @@ class Tally:
         return {r.rid: list(r.output) for r in reqs}
 
     def check(self, counts: dict, layers: int):
+        paged = self.steps["paged"] + self.suffix + self.probes
         want = {"flash_attention": layers * self.prefills,
-                "paged_decode_attention": layers * self.steps["paged"],
+                "paged_decode_attention": layers * paged,
                 "decode_attention": layers * self.steps["dense"]}
         got = {k: n for k, n in counts.items() if n or k in want}
         if got != want:
             raise AssertionError(
-                f"migrate launch counts {got}: need {layers} x "
-                f"{self.prefills} prefills, {layers} x {self.steps} steps "
-                f"and no other kernel: {want}")
+                f"{self.label} launch counts {got}: need {layers} x "
+                f"{self.prefills} prefills, {layers} x {self.steps} steps, "
+                f"{layers} x {self.suffix} suffix tokens, {layers} x "
+                f"{self.probes} logit probes and no other kernel: {want}")
 
 
 def hop_pair(make, cfg, tally, label, landed, *, into=None):
@@ -1503,7 +1572,7 @@ def run_migrate(cfg, params) -> dict:
     from repro_torch.serving.paged import PagedEngine
     zero_counts()
     torch.cuda.synchronize()
-    tally = Tally()
+    tally = Tally("migrate")
 
     # paged (v2): source pages=160, destination pages=256
     geo = dict(rows=4, page_size=16, max_len=2048, device="cuda")
@@ -1622,6 +1691,254 @@ def run_workspace(cfg, params, tally):
         "after 6 steps and incrementally after 7 into Engine(seed 9); both "
         "requests (greedy and sampled) finished with the unmigrated run's "
         "24 tokens bit for bit")
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the prefix cache at full width
+# ---------------------------------------------------------------------------
+
+def _prefix_prompts(cfg):
+    """A 448-token shared system/tool prompt S (28 pages) and two user
+    turns: p0 = S + 21 tokens (29 full blocks + a 5-token tail) and
+    p2 = S + 40 tokens."""
+    rng = np.random.default_rng(SEED + 10)
+    S = rng.integers(0, cfg.vocab_size, 448)
+    return (np.concatenate([S, rng.integers(0, cfg.vocab_size, 21)]),
+            np.concatenate([S, rng.integers(0, cfg.vocab_size, 40)]))
+
+
+def _page_bytes(eng, pages) -> list:
+    """Copies of every layer's K and V at ``pages``."""
+    idx = torch.tensor(pages, dtype=torch.long, device="cuda")
+    return [layer["attn"][n][:, idx].clone() for grp in eng.state.caches
+            for layer in grp for n in ("k_pool", "v_pool")]
+
+
+def _timed_suffix(eng, spent: list):
+    """Wrap ``eng``'s suffix program so each call's synchronised wall
+    lands in ``spent``."""
+    inner = eng._suffix_fn
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    eng._suffix_fn = timed
+
+
+def _prefix_engine(cfg, params, *, pages, seed=SEED, cache=True):
+    from repro_torch.serving.paged import PagedEngine
+    return PagedEngine(cfg, params, rows=4, page_size=16, max_len=2048,
+                       pages=pages, seed=seed, device="cuda",
+                       prefix_cache=cache)
+
+
+def _warm_p2(cfg, params, tally, p0, p2):
+    """p2 served warm in an engine of its own: p0 admitted cold and
+    retired at once (its blocks stay cached), then p2 as a 448-token
+    partial hit.  Returns (engine, p2's request)."""
+    from repro_torch.serving.engine import Request
+    eng = _prefix_engine(cfg, params, pages=64)
+    r0 = Request("p0", p0, max_new_tokens=32, tenant="a")
+    tally.add(eng, r0)
+    eng.retire(r0.slot)
+    r2 = Request("p2", p2, max_new_tokens=32, tenant="a")
+    tally.add(eng, r2)
+    if eng.last_prefix_hit != 448:
+        raise AssertionError(f"warm p2: hit {eng.last_prefix_hit} != 448")
+    return eng, r2
+
+
+def _settled(eng):
+    """``check()`` and no page held beyond the cache's."""
+    eng.check()
+    held = eng.prefix_cache.pages_held if eng.prefix_cache else 0
+    if eng.requests or eng.allocator.used_pages != held:
+        raise AssertionError(f"{eng.allocator.used_pages} pages used, "
+                             f"{held} held by the cache, rows "
+                             f"{sorted(eng.requests)}")
+
+
+def _top2_gap(logits, cfg) -> float:
+    from repro_torch.models.model import vocab_mask_logits
+    top = vocab_mask_logits(logits, cfg).float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def warm_against_cold(cfg, params, tally, p0, p2):
+    """p2 warm (suffix through the decode path) against p2 cold (flash)
+    in lockstep: the first decode step's logits within ``LOGIT_REL_TOL``
+    of the largest, the greedy agreement rate and both runs' top-2 logit
+    gaps at the first divergence; then a second warm run must give the
+    first one's tokens bit for bit.  Returns the warm run's tokens."""
+    from repro_torch.serving.engine import Request
+    ref, warm = _warm_p2(cfg, params, tally, p0, p2)
+    cold_eng = _prefix_engine(cfg, params, pages=40, cache=False)
+    cold = Request("p2", p2, max_new_tokens=32)
+    tally.add(cold_eng, cold)
+    first = None
+    for i in range(32):
+        if first is None:
+            lw = tally.probe(ref)[warm.slot]
+            lc = tally.probe(cold_eng)[cold.slot]
+            if i == 0:
+                err, scale = max_err(lw, lc), float(lc.abs().max())
+                if not torch.isfinite(lw).all() \
+                        or err > LOGIT_REL_TOL * scale:
+                    raise AssertionError(
+                        f"prefix: p2 warm vs cold first-step logits "
+                        f"{err} > {LOGIT_REL_TOL} x {scale}")
+        tally.step(ref)
+        tally.step(cold_eng)
+        if first is None and warm.output[i] != cold.output[i]:
+            first = (i, _top2_gap(lc, cfg), _top2_gap(lw, cfg))
+    agree = sum(a == b for a, b in zip(warm.output, cold.output))
+    where = ("no divergence" if first is None else
+             f"first divergence at token {first[0]}: top-2 logit gap "
+             f"{first[1]:.4f} cold, {first[2]:.4f} warm")
+    log(f"prefix: p2 warm (448 cached + 40-token suffix through "
+        f"paged_decode_attention) vs cold (488 tokens through flash): "
+        f"first decode step's logits max_abs_err={err:.3e}, max |logit| "
+        f"{scale:.3f} (tol {LOGIT_REL_TOL} x max |logit|); greedy "
+        f"agreement {agree}/32; {where}")
+    again_eng, again = _warm_p2(cfg, params, tally, p0, p2)
+    tally.drain(again_eng)
+    if again.output != warm.output:
+        raise AssertionError(f"prefix: a second warm run of p2 gave "
+                             f"{again.output} != {warm.output}")
+    for eng in (ref, cold_eng, again_eng):
+        _settled(eng)
+    log("prefix: a second warm run of p2 (another engine) gave the first "
+        "one's 32 tokens bit for bit")
+    return list(warm.output)
+
+
+def run_prefix(cfg, params) -> dict:
+    """The prefix cache on llama-1.5b at full width: a cold donor, a full
+    hit, a partial hit and another tenant's miss decoding side by side
+    over shared pages, copy on write held byte for byte, the warm run
+    against a cold one, pre-warm and the v3 suffix-only hop, with every
+    launch counted."""
+    from repro_torch import compression
+    from repro_torch.core.migration import pack_slot
+    from repro_torch.serving.engine import Request
+    zero_counts()
+    torch.cuda.synchronize()
+    tally = Tally("prefix")
+    layers = cfg.num_layers
+    p0, p2 = _prefix_prompts(cfg)
+    want_p2 = warm_against_cold(cfg, params, tally, p0, p2)
+
+    eng = _prefix_engine(cfg, params, pages=256)
+    spent: list = []
+    _timed_suffix(eng, spent)
+    reqs = [Request("p0", p0, max_new_tokens=32, tenant="a"),
+            Request("p1", p0.copy(), max_new_tokens=32, tenant="a"),
+            Request("p2", p2, max_new_tokens=32, tenant="a"),
+            Request("p3", p0.copy(), max_new_tokens=32, tenant="b")]
+    admit = {}
+    for r in reqs:
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tally.add(eng, r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        after = read_counts()
+        admit[r.rid] = (wall, eng.last_prefix_hit,
+                        after["flash_attention"] - before["flash_attention"],
+                        after["paged_decode_attention"]
+                        - before["paged_decode_attention"])
+        eng.check()
+        if r.rid == "p0":
+            cache = eng.prefix_cache
+            shared = [n.page for n in cache.nodes.values()] \
+                + [n.page for v in cache.tails.values() for n in v]
+            if len(shared) != 30:
+                raise AssertionError(f"p0 donated {len(shared)} pages, not "
+                                     "29 blocks + a tail copy")
+            kept = _page_bytes(eng, shared)
+    want = {"p0": (0, layers, 0), "p1": (469, 0, 0),
+            "p2": (448, 0, layers * 40), "p3": (0, layers, 0)}
+    got = {k: v[1:] for k, v in admit.items()}
+    if got != want:
+        raise AssertionError(f"prefix admissions (hit, flash, paged "
+                             f"launches) {got} != {want}")
+    stats = eng.prefix_cache.stats.as_dict()
+    log(f"prefix: PagedEngine(rows=4, page_size=16, max_len=2048, pages=256,"
+        f" prefix_cache=True): p0 (tenant a, 469 tokens) cold, donated 29 "
+        f"blocks + a tail copy; p1 (p0's prompt) full hit 469 with no flash "
+        f"launch; p2 (S + 40) partial hit 448, its 40-token suffix {layers}"
+        f" x 40 paged_decode_attention launches; p3 (tenant b, p0's prompt)"
+        f" a miss, cold")
+    suffix_ms = sum(spent) / 40 * 1e3
+    log(f"prefix: time to first token (admission wall, synchronised): cold "
+        f"p0 {admit['p0'][0] * 1e3:.3f} ms, full hit p1 "
+        f"{admit['p1'][0] * 1e3:.3f} ms, partial hit p2 "
+        f"{admit['p2'][0] * 1e3:.3f} ms of which the suffix prefill "
+        f"{sum(spent) * 1e3:.3f} ms = {suffix_ms:.3f} ms per suffix token; "
+        f"cold p3 {admit['p3'][0] * 1e3:.3f} ms (host clock); cache stats "
+        f"{stats} ({gpu_line()})")
+
+    for _ in range(8):
+        tally.step(eng)
+    dst = _prefix_engine(cfg, params, pages=256, seed=9)
+    report = dst.prewarm_chains(eng)
+    if report["skipped"] is not None or not report["pages"]:
+        raise AssertionError(f"prewarm: {report}")
+    log(f"prefix: PagedEngine(seed 9, pages=256).prewarm_chains(source) "
+        f"while p2 is live: {report}")
+    slot = reqs[2].slot
+    v2 = pack_slot(eng.extract_slot(slot, keep=True))
+    v2_wire = len(compression.compress(v2))
+    moved, snap = slot_hop("prefix v3 hop", eng, slot, dst, cfg,
+                           suffix_only=True)
+    v3 = pack_slot(snap)
+    v3_wire = len(compression.compress(v3))
+    n_ship = snap.arrays.caches[0][0]["attn"]["k"].shape[1]
+    if snap.version != 3 or len(v3) >= len(v2):
+        raise AssertionError(f"v{snap.version} {len(v3)} bytes vs v2 "
+                             f"{len(v2)}")
+    log(f"prefix: p2 after 8 steps at position {int(snap.arrays.position)}:"
+        f" v3 raw {len(v3)} bytes, wire {v3_wire} bytes "
+        f"({len(snap.prefix['chain'])}-block chain as hashes, {n_ship} "
+        f"page shipped) against v2 raw {len(v2)} bytes, wire {v2_wire} "
+        f"bytes ({compression.BACKEND}) for the same slot")
+    out = tally.drain(eng)
+    out.update(tally.drain(dst))
+    if out["p2"] != want_p2 or moved.output != want_p2:
+        raise AssertionError(f"prefix: p2 after the v3 hop {out['p2']} != "
+                             f"its unmigrated warm run {want_p2}")
+    if out["p1"] != out["p0"] or out["p3"] != out["p0"]:
+        raise AssertionError(f"prefix: p1 {out['p1']} / p3 {out['p3']} != "
+                             f"p0 {out['p0']}")
+    changed = [i for i, (a, b) in enumerate(zip(kept,
+                                                _page_bytes(eng, shared)))
+               if not torch.equal(a, b)]
+    if changed:
+        raise AssertionError(f"prefix: shared pages written (layer/kv "
+                             f"{changed})")
+    for e in (eng, dst):
+        _settled(e)
+    log("prefix: p1 (full hit, no flash launch) and p3 (tenant b, cold) "
+        "gave p0's 32 tokens bit for bit; p2 finished in the second engine "
+        "after the v3 hop with its unmigrated warm run's 32 tokens bit for "
+        "bit; every layer's K/V of the 30 shared pages byte-equal before "
+        "p1 and p2 were admitted and after the engine drained; check() "
+        "passed and no page is held beyond the cache's on all five engines")
+    counts = read_counts()
+    tally.check(counts, layers)
+    log(f"prefix: launches flash_attention={counts['flash_attention']} "
+        f"({layers} x {tally.prefills} cold prefills), "
+        f"paged_decode_attention={counts['paged_decode_attention']} "
+        f"({layers} x ({tally.steps['paged']} decode steps + "
+        f"{tally.suffix} suffix tokens + {tally.probes} logit probes)), "
+        f"exactly")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1887,6 +2204,7 @@ def main() -> int:
     drive("spec_generate", run_spec_generate, cfg, params, draft)
     drive("self_draft", run_self_draft, cfg, params)
     drive("migrate", run_migrate, cfg, params)
+    drive("prefix", run_prefix, cfg, params)
     del params, draft
     torch.cuda.empty_cache()
     rcfg = get("rwkv6-7b")

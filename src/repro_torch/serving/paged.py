@@ -13,15 +13,23 @@ scatters its K/V into the row's reserved pages; every decode step runs
 the paged-decode kernel over the pools in place.  The decode batch width
 (``rows``) is fixed; rows carry no KV memory of their own.
 
+With ``prefix_cache=True`` a ``PrefixCache`` shares prompt pages
+between requests: a warm admission references the cached chain's pages
+in place, copies a cached partial tail into a private page, and forwards
+only the uncovered suffix -- one decode-mode forward a token, so each
+reads the shared pages through the paged-decode kernel.  A full hit runs
+no forward at all.  Shared pages are only ever read: every position a
+row writes lies in one of its private pages.
+
 A request moves between engines on wire version 2 (``extract_slot`` /
 ``inject_slot``): only its live pages travel, position-ordered and free
 of this engine's pool indices, so the destination's pool may differ in
 size, occupancy and seed as long as the page size and the program
-geometry match (the page-level contract).  The speculative surface
-(``rollback_slot``, ``_force_slot_token``, ``add_request(committed=)``)
-follows the dense engine's.  The prefix cache (``prefix_cache=True``,
-suffix prefill, warm start, donation, pre-warm, and with it the v3
-suffix-only wire) is a later slice (ROADMAP Queue 1 item 2).
+geometry match (the page-level contract).  Wire version 3
+(``suffix_only=True``) ships the shared chain as its hashes and only the
+private pages; the destination re-references its own cached copies.
+The speculative surface (``rollback_slot``, ``_force_slot_token``,
+``add_request(committed=)``) follows the dense engine's.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from repro_torch.models.model import forward
 from repro_torch.core.tree import LeafSpec, register_node
 from repro_torch.serving.engine import (Request, SlotArrays, SlotSnapshot,
                                         request_from_dict, request_to_dict)
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.program_cache import get_programs
 from repro_torch.serving.sampling import rng_state, sample
 
@@ -138,11 +147,7 @@ class PagedEngine:
     def __init__(self, cfg: ModelConfig, params, *, page_size: int = 16,
                  pages: int | None = None, rows: int = 4,
                  max_len: int = 256, seed: int = 0, device="cuda",
-                 prefix_cache: bool = False):
-        if prefix_cache:
-            raise NotImplementedError(
-                "PagedEngine(prefix_cache=True) is not ported yet: ROADMAP "
-                "Queue 1 item 2 (prefix cache)")
+                 prefix_cache: bool = False, shared_tenants: tuple = ()):
         if not (all(ls.mixer in ("attn", "local")
                     for b in cfg.blocks for ls in b.layers)
                 and not cfg.cross_attention and not cfg.encoder_blocks):
@@ -172,9 +177,20 @@ class PagedEngine:
             build=lambda: {
                 "decode": partial(_paged_decode_step, cfg=cfg),
                 "prefill": partial(_paged_prefill, cfg=cfg),
+                "suffix": partial(_paged_suffix_prefill, cfg=cfg),
             })
         self._decode_fn = self._programs.fns["decode"]
         self._prefill_fn = self._programs.fns["prefill"]
+        self._suffix_fn = self._programs.fns["suffix"]
+        # -- multi-tenant prefix sharing (opt-in) ---------------------------
+        self.prefix_cache = None
+        self._shared: dict[int, list] = {}   # row -> referenced PrefixNodes
+        self.last_prefix_hit = 0             # tokens served shared, last admit
+        if prefix_cache:
+            self.prefix_cache = PrefixCache(
+                self.allocator, page_size=page_size,
+                cross_tenant=tuple(shared_tenants),
+                token_bytes=self.kv_token_bytes)
 
     @property
     def kv_token_bytes(self) -> int:
@@ -227,32 +243,82 @@ class PagedEngine:
     def _pages_for(self, need_tokens: int) -> int:
         return -(-need_tokens // self.page_size)
 
-    def can_admit(self, need_tokens: int) -> bool:
+    def _evictable_pages(self) -> int:
+        """Refcount-0 prefix-cache pages: reclaimed on demand at
+        admission, so they count as free capacity."""
+        return (self.prefix_cache.evictable_pages()
+                if self.prefix_cache is not None else 0)
+
+    def can_admit(self, need_tokens: int, *, cached_tokens: int = 0) -> bool:
+        """``cached_tokens`` (page-aligned, from ``prefix_hit_tokens``)
+        discounts the page reservation only; the ``max_len`` bound stays
+        unreduced, since the row holds the whole stream."""
+        need_pages = (self._pages_for(need_tokens)
+                      - cached_tokens // self.page_size)
         return (bool(self.free_slots)
                 and need_tokens <= self.max_len
-                and self._pages_for(need_tokens)
-                <= self.allocator.free_pages)
+                and need_pages
+                <= self.allocator.free_pages + self._evictable_pages())
 
     def admissible(self, need_tokens: int) -> bool:
         return (need_tokens <= self.max_len
                 and self._pages_for(need_tokens) <= self.allocator.total)
 
+    def prefix_hit_tokens(self, tenant: str, tokens) -> int:
+        """Full-page cached coverage of ``tokens`` for ``tenant``: that
+        many prefill tokens (and pages) a warm admission would skip."""
+        if self.prefix_cache is None or tokens is None or not len(tokens):
+            return 0
+        return self.prefix_cache.hit_tokens(tenant, tokens)
+
+    def prefix_hit_tokens_hashed(self, tenant: str, hashed) -> int:
+        """``prefix_hit_tokens`` over a precomputed ``HashedPrefix``."""
+        if self.prefix_cache is None or hashed is None \
+                or not len(hashed.tokens):
+            return 0
+        return self.prefix_cache.hit_tokens_hashed(tenant, hashed)
+
     @property
     def free_token_budget(self) -> int:
         if not self.free_slots:
             return 0
-        return self.allocator.free_pages * self.page_size
+        return ((self.allocator.free_pages + self._evictable_pages())
+                * self.page_size)
 
     # -- request lifecycle --------------------------------------------------
     def _row_pages(self, row: int) -> list[int]:
         pt = self.state.page_table[row].cpu().tolist()
         return [p for p in pt if p >= 0]
 
+    def _reserve(self, n: int, owner: str, nodes: list) -> list[int] | None:
+        """Allocate ``n`` private pages, reclaiming refcount-0 cache pages
+        if the free list is short.  ``nodes`` -- the chain the caller is
+        about to reference -- is acquired first, so the reclaim can never
+        evict it and hand its page back as a private one; on failure it is
+        released again and None returned, with no page moved for it."""
+        cache = self.prefix_cache
+        if nodes:
+            cache.acquire(nodes)
+        pages = self.allocator.alloc(n, owner)
+        if pages is None and cache is not None:
+            cache.reclaim(n - self.allocator.free_pages)
+            pages = self.allocator.alloc(n, owner)
+        if pages is None and nodes:
+            cache.release(nodes)
+        return pages
+
     def add_request(self, req: Request, *,
                     committed: list[int] | None = None) -> bool:
         """Admit iff a decode row is free AND the reservation fits the
         free page budget -- reserving up front means an admitted request
         can never deadlock mid-decode waiting for pages.
+
+        With a prefix cache the reservation is charged for what the cache
+        does not cover: the longest cached chain is referenced in place,
+        a cached partial tail is copied into the first private page, and
+        only the uncovered suffix is forwarded (a full hit runs no forward
+        at all).  The prefill domain applies to a cold prefill only; a
+        warm suffix goes through the decode path.
 
         ``committed`` is the lossy cross-tier restore path, as on the
         dense engine: the row prefills prompt + the committed tokens,
@@ -269,8 +335,15 @@ class PagedEngine:
             prefix = np.concatenate(
                 [prefix, np.asarray(committed, np.int32)])
         plen = len(prefix)
-        check_domain(plen)               # refuse before any page moves
-        pages = self.allocator.alloc(self._pages_for(need), req.rid)
+        cache = self.prefix_cache
+        tenant = req.tenant
+        full_nodes, tail, hit = (cache.match(tenant, prefix)
+                                 if cache is not None else ([], None, 0))
+        if hit == 0:
+            check_domain(plen)           # refuse before any page moves
+        n_ref = len(full_nodes)
+        pages = self._reserve(self._pages_for(need) - n_ref, req.rid,
+                              full_nodes)
         if pages is None:
             return False
         row = free[0]
@@ -278,18 +351,151 @@ class PagedEngine:
         self.requests[row] = req
         if committed:
             req.output[:] = list(committed)
+        self._shared[row] = list(full_nodes)
         pt_row = np.full((self.np_pages,), -1, np.int32)
-        pt_row[:len(pages)] = pages
+        pt_row[:n_ref] = [n.page for n in full_nodes]
+        pt_row[n_ref:n_ref + len(pages)] = pages
         s = self.state
         s.page_table[row] = torch.from_numpy(pt_row).to(self.device)
         s.temperature[row] = req.temperature
         s.top_k[row] = req.top_k
-        prompt = torch.from_numpy(prefix).to(self.device)[None]
-        self.state = self._run(
-            f"prefill[plen={plen}]",
-            lambda: self._prefill_fn(self.params, s, prompt, slot=row,
-                                     plen=plen))
+        if tail is not None and hit > n_ref * self.page_size:
+            # copy on write: the block holding the first position this row
+            # writes is the cached tail's copy, never the shared page
+            self._copy_page(tail.page, pages[0])
+        self.last_prefix_hit = hit
+        if hit >= plen:
+            # full hit: every prompt token's KV is already in the row's
+            # page table (shared chain + copied tail)
+            self._warm_start(row, prefix)
+        elif hit == 0:
+            prompt = torch.from_numpy(prefix).to(self.device)[None]
+            self.state = self._run(
+                f"prefill[plen={plen}]",
+                lambda: self._prefill_fn(self.params, s, prompt, slot=row,
+                                         plen=plen))
+        else:
+            # suffix prefill: seed the covered region, then forward the
+            # uncovered tokens through the decode path (prefill attention
+            # never reads the pools, so the suffix could not see the
+            # shared prefix there)
+            self._warm_start(row, prefix[:hit])
+            suffix = torch.from_numpy(prefix[hit:]).to(self.device)[None]
+            slen = plen - hit
+            self.state = self._run(
+                f"suffix[slen={slen}]",
+                lambda: self._suffix_fn(self.params, self.state, suffix,
+                                        slot=row, slen=slen))
+        if cache is not None:
+            self._donate(row, tenant, prefix, hit)
+            cache.account(hit)
         return True
+
+    def _warm_start(self, row: int, covered: np.ndarray):
+        """Seed a row as if ``covered`` had just been prefilled: tokens
+        written, position past the covered region, last token primed.
+        The region's KV must already sit in the row's page table."""
+        s = self.state
+        n = len(covered)
+        s.tokens[row, :n] = torch.from_numpy(
+            np.asarray(covered, np.int32)).to(self.device)
+        s.positions[row] = n
+        s.last_token[row] = int(covered[-1])
+        s.active[row] = True
+
+    def _copy_page(self, src: int, dst: int):
+        """Copy one physical page across every layer's pools (the
+        copy-on-write fork and the tail donation), in place."""
+        for grp in self.state.caches:
+            for layer in grp:
+                a = layer["attn"]
+                for name in ("k_pool", "v_pool"):
+                    a[name][:, dst].copy_(a[name][:, src])
+
+    def _copy_page_from(self, donor: PagedEngine, src: int, dst: int):
+        """Copy one physical page of ``donor``'s pools into this engine's
+        (cross-engine pre-warm; the engines share config and page size)."""
+        for grp, dgrp in zip(self.state.caches, donor.state.caches):
+            for layer, dlayer in zip(grp, dgrp):
+                a, b = layer["attn"], dlayer["attn"]
+                for name in ("k_pool", "v_pool"):
+                    a[name][:, dst].copy_(b[name][:, src])
+
+    def prewarm_chains(self, donor: PagedEngine, *, top_k: int = 4) -> dict:
+        """Pre-warm this engine's prefix cache from a same-geometry donor:
+        graft the donor's hottest referenced chains (most recently touched
+        first, at most ``top_k``) root first, copying each page into a
+        page allocated here.  Best effort with a loud skip: the report
+        says how many chains and pages landed and why it stopped
+        (``skipped``); it never raises."""
+        report = {"chains": 0, "pages": 0, "skipped": None}
+        mine, theirs = self.prefix_cache, donor.prefix_cache
+        if mine is None or theirs is None:
+            report["skipped"] = "no prefix cache on donor or target"
+            return report
+        if (donor.page_size != self.page_size
+                or donor.cfg.name != self.cfg.name):
+            report["skipped"] = (
+                f"geometry mismatch: donor {donor.cfg.name}"
+                f"/ps={donor.page_size} vs {self.cfg.name}"
+                f"/ps={self.page_size}")
+            return report
+        # hottest chain := most recently touched referenced node; the
+        # chain is that node's ancestry, grafted root first
+        hot = sorted((n for n in theirs.nodes.values() if n.refs > 0),
+                     key=lambda n: n.stamp, reverse=True)
+        planned: list = []
+        chains = 0
+        for leaf in hot:
+            if chains >= top_k:
+                break
+            chain = []
+            node, seen = leaf, {n.key for n in planned}
+            while node is not None:
+                if node.key in seen or node.key in mine.nodes:
+                    break            # ancestry already planned or local
+                chain.append(node)
+                node = theirs.nodes.get(node.parent) \
+                    if node.parent is not None else None
+            if not chain:
+                continue
+            planned.extend(reversed(chain))
+            chains += 1
+        for node in planned:
+            pages = self.allocator.alloc(1, f"prewarm:{node.key}")
+            if pages is None:
+                report["skipped"] = (
+                    f"page budget exhausted after {report['pages']} of "
+                    f"{len(planned)} pages")
+                break
+            self._copy_page_from(donor, node.page, pages[0])
+            if mine.graft(node, pages[0]) is None:
+                self.allocator.free(pages)
+                continue
+            report["pages"] += 1
+        report["chains"] = chains
+        return report
+
+    def _donate(self, row: int, tenant: str, prefix: np.ndarray, hit: int):
+        """Publish this row's freshly prefilled prompt blocks into the
+        cache: full blocks move to the cache in place (the row keeps a
+        reference), the partial tail is donated as a copy (the row's own
+        tail page is about to be written by decode)."""
+        cache, ps = self.prefix_cache, self.page_size
+        nodes = self._shared[row]
+        row_pages = self._row_pages(row)
+        for d in range(len(nodes), len(prefix) // ps):
+            node = cache.adopt(tenant, prefix, d, row_pages[d])
+            if node is None:
+                # a peer cached this block since the match: keep the
+                # private page and stop extending the chain
+                return
+            cache.acquire([node])
+            nodes.append(node)
+        if len(prefix) % ps and hit < len(prefix):
+            d = len(prefix) // ps
+            cache.adopt_tail(tenant, prefix,
+                             lambda dst: self._copy_page(row_pages[d], dst))
 
     def step(self, *, auto_retire: bool = True) -> dict[str, int]:
         if not self.requests:
@@ -312,12 +518,19 @@ class PagedEngine:
     def retire(self, row: int):
         self.requests.pop(row, None)
         pages = self._row_pages(row)
+        nodes = self._shared.pop(row, None)
+        if nodes:
+            # shared pages lead the page table: drop the references (the
+            # cache frees them only at refcount-0 eviction) and free just
+            # the row's private pages
+            self.prefix_cache.release(nodes)
+            pages = pages[len(nodes):]
         if pages:
             self.allocator.free(pages)
         self.state.page_table[row] = -1
         self.state.active[row] = False
 
-    # -- per-slot live migration (wire v2: live pages) -----------------------
+    # -- per-slot live migration (v2: live pages; v3: suffix only) ----------
     def extract_slot(self, slot: int, *, keep: bool = False,
                      suffix_only: bool = False) -> SlotSnapshot:
         """Detach one request shipping only its live pages (wire v2).
@@ -326,18 +539,32 @@ class PagedEngine:
         where ``n_live = ceil(position / page_size)`` -- position-ordered
         pages, free of this engine's pool indices -- plus the token
         prefix trimmed to the live region.  Unless ``keep``, the row is
-        retired and its pages freed."""
-        if suffix_only:
-            raise NotImplementedError(
-                "extract_slot(suffix_only=True) (wire v3) needs the prefix "
-                "cache, which is not ported yet: ROADMAP Queue 1 item 2")
+        retired and its pages freed.
+
+        ``suffix_only`` (wire v3) leaves the row's shared chain pages out
+        and ships their chain hashes instead (``snap.prefix``): a
+        destination whose cache holds the chain references its own copies
+        and only the private pages cross.  Callers check the destination
+        first (``prefix_cache.has_chain``).  A row with no shared chain
+        raises ``ValueError`` before anything changes."""
         req = self.requests[slot]
         s = self.state
         pos = int(s.positions[slot])
         ps = self.page_size
         n_live = max(1, -(-pos // ps))
-        live = torch.tensor(self._row_pages(slot)[:n_live], dtype=torch.long,
-                            device=self.device)
+        shared = self._shared.get(slot, [])
+        n_skip, prefix_meta = 0, None
+        if suffix_only:
+            if not shared:
+                raise ValueError(
+                    f"suffix_only extract of {req.rid!r} needs a shared "
+                    "prefix chain; this row references none")
+            n_skip = min(len(shared), n_live)
+            prefix_meta = {"tenant": req.tenant,
+                           "chain": [n.key for n in shared[:n_skip]],
+                           "len": n_skip * ps}
+        live = torch.tensor(self._row_pages(slot)[n_skip:n_live],
+                            dtype=torch.long, device=self.device)
         arrays = SlotArrays(
             caches=[[{"attn": {"k": layer["attn"]["k_pool"][:, live],
                                "v": layer["attn"]["v_pool"][:, live]}}
@@ -350,22 +577,26 @@ class PagedEngine:
             top_k=s.top_k[slot].clone())
         snap = SlotSnapshot(arrays=arrays, request=request_to_dict(req),
                             config_name=self.cfg.name,
-                            step=int(s.step_count), version=2, page_size=ps)
+                            step=int(s.step_count),
+                            version=3 if suffix_only else 2, page_size=ps,
+                            prefix=prefix_meta)
         if not keep:
             self.retire(slot)
         return snap
 
     def inject_slot(self, snap: SlotSnapshot,
                     slot: int | None = None) -> Request:
-        """Resume a v2 snapshot: allocate a fresh reservation of
-        ``max(pages_for(prompt + max_new), n_live)`` pages here, scatter
-        the live pages into it, pad the token prefix out to this
-        engine's max_len and write the row's page table.  Page ids are
-        engine-local, so the donor's and destination's pools never need
-        to line up -- only the page size and the program geometry do.
-        Every refusal raises before any page moves: ``ValueError`` for a
-        snapshot this engine cannot take, ``RuntimeError`` when no row
-        or page budget is free."""
+        """Resume a v2 or v3 snapshot: allocate a fresh reservation of
+        ``max(pages_for(prompt + max_new) - n_shared, n_live)`` pages
+        here, scatter the shipped pages into it, pad the token prefix out
+        to this engine's max_len and write the row's page table.  A v3
+        snapshot's chain must be in this engine's cache: its ``n_shared``
+        pages are referenced in place and lead the page table.  Page ids
+        are engine-local, so the pools never need to line up -- only the
+        page size and the program geometry do.  Every refusal raises
+        before any page moves: ``ValueError`` for a snapshot this engine
+        cannot take, ``RuntimeError`` when no row or page budget is
+        free."""
         if snap.config_name != self.cfg.name:
             raise ValueError(f"config mismatch: {self.cfg.name} != "
                              f"{snap.config_name}")
@@ -379,18 +610,33 @@ class PagedEngine:
                 f"page_size mismatch: blob {snap.page_size} != engine "
                 f"{self.page_size} (cross-geometry moves are lossy)")
         req = request_from_dict(snap.request)
+        nodes = []
         if snap.version == 3:
-            raise ValueError(
-                f"v3 (suffix-only) blob for {req.rid!r} but this "
-                "engine has no prefix cache; the sender must fall "
-                "back to full v2")
+            if self.prefix_cache is None:
+                raise ValueError(
+                    f"v3 (suffix-only) blob for {req.rid!r} but this "
+                    "engine has no prefix cache; the sender must fall "
+                    "back to full v2")
+            chain = snap.prefix["chain"]
+            nodes = self.prefix_cache.lookup_chain(chain)
+            if nodes is None:
+                raise ValueError(
+                    f"v3 (suffix-only) blob for {req.rid!r}: destination "
+                    f"prefix cache is missing the {len(chain)}-block "
+                    f"chain; the sender must fall back to full v2")
+            if snap.prefix["len"] != len(nodes) * self.page_size:
+                raise ValueError(
+                    f"v3 blob for {req.rid!r}: prefix len "
+                    f"{snap.prefix['len']} != {len(nodes)} blocks")
+        n_sh = len(nodes)
         a = snap.arrays
         need = len(req.prompt) + req.max_new_tokens
-        n_live = self._check_pages(a)
-        if need > self.max_len or n_live * self.page_size > self.max_len:
+        n_live = self._check_pages(a, n_sh)
+        if need > self.max_len \
+                or (n_sh + n_live) * self.page_size > self.max_len:
             raise ValueError(
-                f"{req.rid!r} needs {need} tokens and {n_live} live pages; "
-                f"this engine's max_len is {self.max_len}")
+                f"{req.rid!r} needs {need} tokens and {n_sh} + {n_live} "
+                f"live pages; this engine's max_len is {self.max_len}")
         if slot is None:
             free = self.free_slots
             if not free:
@@ -400,8 +646,8 @@ class PagedEngine:
             raise ValueError(f"row {slot} out of range [0, {self.rows})")
         if slot in self.requests:
             raise RuntimeError(f"row {slot} busy")
-        pages = self.allocator.alloc(max(self._pages_for(need), n_live),
-                                     req.rid)
+        pages = self._reserve(max(self._pages_for(need) - n_sh, n_live),
+                              req.rid, nodes)
         if pages is None:
             raise RuntimeError(
                 f"no free page budget to inject {req.rid!r} into")
@@ -413,8 +659,11 @@ class PagedEngine:
                 p, q = layer["attn"], pay["attn"]
                 p["k_pool"][:, live] = q["k"]
                 p["v_pool"][:, live] = q["v"]
+        if nodes:
+            self._shared[slot] = list(nodes)
         pt_row = np.full((self.np_pages,), -1, np.int32)
-        pt_row[:len(pages)] = pages
+        pt_row[:n_sh] = [n.page for n in nodes]
+        pt_row[n_sh:n_sh + len(pages)] = pages
         s.page_table[slot] = torch.from_numpy(pt_row).to(self.device)
         s.tokens[slot] = 0
         s.tokens[slot, :a.tokens.shape[0]] = a.tokens.to(self.device)
@@ -428,10 +677,11 @@ class PagedEngine:
         self.requests[slot] = req
         return req
 
-    def _check_pages(self, a: SlotArrays) -> int:
-        """The payload's live-page count; refuses one whose layers, page
-        leaves or token prefix do not fit this engine's pools exactly
-        (no broadcast, no cast)."""
+    def _check_pages(self, a: SlotArrays, n_shared: int = 0) -> int:
+        """The payload's page count; refuses one whose layers, page
+        leaves or token prefix (``n_shared`` chain pages + the payload's,
+        in tokens) do not fit this engine's pools exactly (no broadcast,
+        no cast)."""
         if [len(g) for g in a.caches] != [len(g) for g in self.state.caches]:
             raise ValueError(
                 f"layer mismatch: blob {[len(g) for g in a.caches]} != "
@@ -447,9 +697,10 @@ class PagedEngine:
                         raise ValueError(
                             f"live-page leaf {name} {tuple(leaf.shape)} "
                             f"{leaf.dtype} != {want} {pool.dtype}")
-        if tuple(a.tokens.shape) != (n_live * self.page_size,):
+        want = ((n_shared + n_live) * self.page_size,)
+        if tuple(a.tokens.shape) != want:
             raise ValueError(f"token prefix {tuple(a.tokens.shape)} != "
-                             f"({n_live * self.page_size},)")
+                             f"{want}")
         return n_live
 
     def slot_like(self) -> SlotArrays:
@@ -507,14 +758,25 @@ class PagedEngine:
         s.positions[slot] = new_pos
 
     def check(self):
-        """Engine-level conservation audit: allocator invariants and the
-        page ledger (used == the live rows' reservations)."""
+        """Engine-level conservation audit: allocator invariants (with
+        the prefix cache's ownership and refcount auditor), the page
+        ledger (used == row-private + cache-held), and exact refcounts
+        against the live rows' shared chains."""
         self.allocator.check()
-        private = sum(len(self._row_pages(r)) for r in self.requests)
-        if self.allocator.used_pages != private:
+        if not set(self._shared) <= set(self.requests):
+            raise RuntimeError(
+                f"shared-chain rows without live requests: "
+                f"{sorted(set(self._shared) - set(self.requests))}")
+        private = sum(len(self._row_pages(r)) - len(self._shared.get(r, ()))
+                      for r in self.requests)
+        held = self.prefix_cache.pages_held \
+            if self.prefix_cache is not None else 0
+        if self.allocator.used_pages != private + held:
             raise RuntimeError(
                 f"page ledger broken: used={self.allocator.used_pages} != "
-                f"reserved by live rows={private}")
+                f"private={private} + cache-held={held}")
+        if self.prefix_cache is not None:
+            self.prefix_cache.check(self._shared.values())
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +810,37 @@ def _paged_prefill(params, state: PagedEngineState, prompt, *, slot: int,
     state.tokens[slot, :plen] = prompt[0]
     state.positions[slot] = plen
     state.last_token[slot] = prompt[0, -1]
+    state.active[slot] = True
+    return state
+
+
+@torch.no_grad()
+def _paged_suffix_prefill(params, state: PagedEngineState, suffix, *,
+                          slot: int, slen: int, cfg):
+    """Prefill the uncovered suffix of a warm row, one token a forward.
+
+    Prefill-mode attention reads only the tokens it is fed, so a suffix
+    that must attend to a cached prefix goes through the decode path:
+    each token is forwarded at batch 1 at its absolute position, reads
+    the shared pages through the row's page table (one paged-decode
+    launch a layer) and writes its K/V into the row's private pages.
+    The row's position must sit at the covered length (``_warm_start``);
+    the logits are dropped, and the row ends as a cold prefill leaves it:
+    position at plen, the last prompt token primed."""
+    start = int(state.positions[slot])
+    # the paged kernel reads its int32 inputs as 16-byte vectors: the
+    # row's page table is copied out (a row slice need not be aligned)
+    # and each token's position opens a row of 4 int32
+    caches = _weave(state.caches, state.page_table[slot:slot + 1].clone())
+    pos = torch.zeros((slen, 4), dtype=torch.int32, device=suffix.device)
+    pos[:, 0] = torch.arange(start, start + slen, dtype=torch.int32,
+                             device=suffix.device)
+    for i in range(slen):
+        forward(params, {"tokens": suffix[:, i:i + 1]}, cfg=cfg,
+                mode="decode", caches=caches, positions=pos[i:i + 1, :1])
+    state.tokens[slot, start:start + slen] = suffix[0]
+    state.positions[slot] = start + slen
+    state.last_token[slot] = suffix[0, -1]
     state.active[slot] = True
     return state
 

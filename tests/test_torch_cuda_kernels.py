@@ -316,6 +316,64 @@ def test_tiny_engine_on_the_card_runs_both_kernels(cuda):
     assert da.paged_decode_attention.launches - d0 == cfg.num_layers * steps
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,max_len", [(2, 128), (3, 48)])
+def test_tiny_engine_prefix_cache_on_the_card(cuda, rows, max_len):
+    """Warm admissions on the card (head dim 64): a full hit runs no
+    kernel and decodes the cold donor's tokens bit for bit; a partial
+    hit's suffix launches the paged kernel once a layer a token, in row 1,
+    whose page-table slice need not be 16-byte aligned (48 / 16 = 3 pages
+    a row); the shared pages are never written; the ledger holds."""
+    from repro_torch.configs import get
+    from repro_torch.configs.tiny import make_tiny
+    from repro_torch.models.init import init_params
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.paged import PagedEngine
+    cfg = make_tiny(get("llama-1.5b"), d_model=256)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    eng = PagedEngine(cfg, params, page_size=16, rows=rows,
+                      max_len=max_len, device=cuda, prefix_cache=True)
+    donor = np.arange(2, 23)             # 1 full page + a 5-token tail
+    part = np.concatenate([donor[:16], np.arange(100, 107)])
+
+    def serve(rid, prompt):
+        req = Request(rid, prompt, max_new_tokens=6)
+        assert eng.add_request(req)
+        hit = eng.last_prefix_hit
+        while eng.requests:
+            eng.step()
+        eng.check()
+        return req.output, hit
+
+    cold, hit = serve("cold", donor)
+    assert hit == 0
+    cache = eng.prefix_cache
+    shared = [n.page for n in cache.nodes.values()] \
+        + [n.page for v in cache.tails.values() for n in v]
+    kept = [layer["attn"][n][:, shared].clone() for grp in eng.state.caches
+            for layer in grp for n in ("k_pool", "v_pool")]
+    f0 = fa.flash_attention.launches
+    d0 = da.paged_decode_attention.launches
+    warm, hit = serve("warm", donor)
+    assert hit == len(donor) and warm == cold
+    assert fa.flash_attention.launches == f0
+    assert da.paged_decode_attention.launches - d0 == cfg.num_layers * 6
+    # a filler in row 0, so the partial hit's row is row 1
+    assert eng.add_request(Request("filler", np.arange(200, 210),
+                                   max_new_tokens=12))
+    f0 = fa.flash_attention.launches
+    d0 = da.paged_decode_attention.launches
+    out, hit = serve("part", part)
+    assert hit == 16 and len(out) == 6
+    assert fa.flash_attention.launches == f0
+    assert da.paged_decode_attention.launches - d0 \
+        == cfg.num_layers * (len(part) - 16 + 12)
+    now = [layer["attn"][n][:, shared] for grp in eng.state.caches
+           for layer in grp for n in ("k_pool", "v_pool")]
+    assert all(torch.equal(a, b) for a, b in zip(kept, now))
+    assert eng.allocator.used_pages == cache.pages_held
+
+
 def _dense(cuda, B, Sc, KV, D, dtype, seed):
     gen = torch.Generator(cuda).manual_seed(seed)
     return (torch.randn((B, Sc, KV, D), generator=gen, device=cuda,

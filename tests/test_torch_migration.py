@@ -512,8 +512,20 @@ def test_paged_refusals_move_no_page():
     req = mk_req("v3", np.arange(2, 8), max_new=6)
     src.add_request(req)
     src.step()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    # no shared chain (no prefix cache): suffix_only refuses, row intact
+    with pytest.raises(ValueError, match="shared prefix chain"):
         src.extract_slot(req.slot, suffix_only=True)
+    assert req.slot in src.requests
+    src.check()
+    warm = PagedEngine(CFG, _params(), page_size=8, rows=2, max_len=64,
+                       device="cpu", prefix_cache=True)
+    wreq = mk_req("w", np.arange(2, 20), max_new=6)
+    assert warm.add_request(wreq)
+    warm.step()
+    v3 = warm.extract_slot(wreq.slot, suffix_only=True)
+    assert v3.version == 3 and len(v3.prefix["chain"]) == 2
+    assert v3.arrays.caches[0][0]["attn"]["k"].shape[1] == 1
+    warm.check()
     snap = src.extract_slot(req.slot)
     snap.version = 3
     dst = mk_paged(rows=2, pages=10)

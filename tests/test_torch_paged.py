@@ -161,8 +161,9 @@ def test_paged_decode_is_deterministic_in_seed():
 
 
 def test_entry_points_refuse_what_is_not_ported_or_not_there():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedEngine(CFG, _params(), device="cpu", prefix_cache=True)
+    warm = PagedEngine(CFG, _params(), device="cpu", prefix_cache=True)
+    assert warm.prefix_cache is not None and warm.prefix_cache.pages_held == 0
+    assert warm.free_token_budget == warm.pages * warm.page_size
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             PagedEngine(CFG, _params())             # default device: cuda
