@@ -62,6 +62,25 @@ the result line):
                             held byte-equal; the partial hit against a
                             cold run and a second warm run; pre-warm and
                             the v3 suffix-only hop against v2's bytes
+               fleet        ``FleetController`` (tracer on, host clock)
+                            over two ``PagedEngine``s (full tier), a
+                            dense lite-tier engine (an int8 round trip of
+                            the weights) and a draft (mini tier: half the
+                            layers, seed 9) -> verify pair in
+                            distribution mode; twelve requests across
+                            sensitivities, floors and priorities; a live
+                            migration, a failure with exact re-placement
+                            from shadows, a lossy hand-off and a refused
+                            one, an uplink cut; conservation after every
+                            step; moved greedy requests against fresh
+                            engines bit for bit; launches against the
+                            count from the engines' programs
+               replicate    ``ReplicationManager`` over three dense
+                            engines (full, lite, mini): synced steps, a
+                            failover split into its stages, steps on the
+                            lite replica, a merge on reconnect; then the
+                            daemon's decisions and its decode roofline
+                            against a measured step
                then rwkv6-7b at full width (bf16, seed 0; llama freed):
                rwkv         ``Engine(slots=4, max_len=2048)``: four
                             requests, rwkv6_scan launched 32 times per
@@ -977,7 +996,8 @@ def compare_logits(label: str, fn):
 
 def profiled(fn, label: str, per: int):
     """Run ``fn`` under torch.profiler; print wall time, device-busy time
-    and the kernels that take most device time, per ``per`` units."""
+    and the kernels that take most device time, per ``per`` units, and
+    return (wall ms, busy ms) per unit."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1005,6 +1025,7 @@ def profiled(fn, label: str, per: int):
             own.append(f"{name} {e.self_device_time_total / 1e3 / per:.3f}"
                        f" ms x{e.count / per:.0f}")
     log(f"profile {label}: the port's kernels: {', '.join(own) or 'none'}")
+    return wall * 1e3 / per, busy_us / 1e3 / per
 
 
 def run_engine(cfg, params):
@@ -1942,6 +1963,521 @@ def run_prefix(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the fleet path: the sync-mode fleet, replication and the placement daemon
+# ---------------------------------------------------------------------------
+
+def int8_round_trip(params):
+    """The lite tier's weights: every floating leaf through a per-tensor
+    symmetric int8 round trip (the JAX package's ``quantize_int8`` /
+    ``dequantize_int8``, as ``tests/test_fleet_quality.py`` builds it)."""
+    from repro_torch.core.tree import tree_map
+
+    def one(w):
+        if not w.is_floating_point():
+            return w
+        scale = (w.float().abs().max() + 1e-12) / 127.0
+        q = torch.clamp(torch.round(w.float() / scale), -127, 127)
+        return (q * scale).to(w.dtype)
+    return tree_map(one, params)
+
+
+def mini_config(cfg):
+    """The mini tier: the first half of the model's layers (the JAX
+    tests' ``SMALL_CFG``), under its own name."""
+    import dataclasses
+    block = cfg.blocks[0]
+    return cfg.replace(name=cfg.name + "-sm", blocks=(
+        dataclasses.replace(block, repeats=block.repeats // 2),))
+
+
+class Calls:
+    """What the fleet's engines ran, counted at the engines' own step
+    programs: each successful admission (one prefill: flash once a
+    layer), each paged decode forward (paged decode once a layer), each
+    dense decode forward, sampled or scoring (dense decode once a layer),
+    and each slot a distribution verify call scores (spec_accept once).
+    The kernels' launches on the path follow from these and the layer
+    counts."""
+
+    def __init__(self):
+        self.n = {}
+        self.layers = {}
+
+    def _count(self, key, fn, weight=lambda *a, **kw: 1):
+        def counted(*a, **kw):
+            out = fn(*a, **kw)
+            if out is not False:
+                self.n[key] = self.n.get(key, 0) + weight(*a, **kw)
+            return out
+        return counted
+
+    def watch(self, name, eng):
+        self.layers[name] = (eng.cfg.num_layers, eng.paged)
+        eng.add_request = self._count((name, "prefill"), eng.add_request)
+        eng._decode_fn = self._count((name, "decode"), eng._decode_fn)
+        if not eng.paged:
+            eng._decode_probs = self._count((name, "decode"),
+                                            eng._decode_probs)
+            eng.verify_slots_distribution = self._count(
+                (name, "verified"), eng.verify_slots_distribution,
+                lambda drafts, *a, **kw: len(drafts))
+
+    def predict(self) -> dict:
+        pred = dict.fromkeys(("flash_attention", "paged_decode_attention",
+                              "decode_attention", "spec_accept"), 0)
+        for name, (layers, paged) in self.layers.items():
+            get = lambda what: self.n.get((name, what), 0)  # noqa: E731
+            pred["flash_attention"] += layers * get("prefill")
+            pred["paged_decode_attention" if paged else
+                 "decode_attention"] += layers * get("decode")
+            pred["spec_accept"] += get("verified")
+        return pred
+
+
+class Stages:
+    """Host seconds spent in named callables while the context is open
+    (each call synchronised with the card): a migration's stages."""
+
+    def __init__(self, **targets):
+        self.targets, self.spent, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for label, (obj, attr) in self.targets.items():
+            fn = getattr(obj, attr)
+            self.saved.append((obj, attr, fn, attr in vars(obj)))
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                t = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.spent[_label] = (self.spent.get(_label, 0.0)
+                                      + time.perf_counter() - t)
+                return out
+            setattr(obj, attr, timed)
+        return self.spent
+
+    def __exit__(self, *exc):
+        for obj, attr, fn, own in reversed(self.saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
+
+
+def conserved(fleet):
+    """The conservation audit of ``tests/helpers.assert_conserved``, the
+    port's copy for engines without a prefix cache: every ticket in
+    exactly one place (queued or parked, in flight on a healthy
+    registered engine, or terminal), and each healthy engine's admission
+    ledger equal to a walk over its rows."""
+    from repro_torch.fleet import TERMINAL_STATES
+    queued = {it.rid for it in fleet.queue.ordered()}
+    inflight = set(fleet.inflight)
+    if queued & inflight:
+        raise AssertionError(f"fleet: duplicated {queued & inflight}")
+    for rid, t in fleet.tickets.items():
+        places = ((rid in queued) + (rid in inflight)
+                  + (t.state in TERMINAL_STATES))
+        if places != 1:
+            raise AssertionError(f"fleet: {rid} in {places} places "
+                                 f"({t.state.value})")
+    for rid, (_, hname, _) in fleet.inflight.items():
+        if hname not in fleet.handles or not fleet.handles[hname].healthy:
+            raise AssertionError(f"fleet: {rid} on dead {hname}")
+    for name, h in fleet.handles.items():
+        if not h.healthy:
+            continue
+        eng = h.engine
+        if eng.paged:
+            eng.check()
+            held = sum(len(eng._row_pages(r)) for r in eng.requests)
+            want = (eng.allocator.free_pages * eng.page_size
+                    if eng.free_slots else 0)
+            if eng.allocator.used_pages != held \
+                    or eng.free_token_budget != want:
+                raise AssertionError(f"fleet: {name} ledger broken")
+        elif eng.free_token_budget != len(eng.free_slots) * eng.max_len:
+            raise AssertionError(f"fleet: {name} slot budget broken")
+
+
+def _fleet_traffic():
+    """Two waves of requests, 32 new tokens each: prompts of 37, 200,
+    512 and 1024 tokens, greedy alternating with ``temperature=0.7,
+    top_k=16``, the three sensitivities, quality floors 0, 0.5 and 1.0,
+    one priority-2 request, and one whose deadline passes while it
+    waits.  ``(rid, length, sampled, sensitivity, floor, priority,
+    seconds to its deadline)``."""
+    wave1 = [("x", 200, False, "personal", 1.0, 0, None),
+             ("y", 1024, False, "public", 0.0, 0, None),
+             ("z", 512, True, "confidential", 0.5, 0, None),
+             ("w", 37, True, "public", 0.5, 0, None)]
+    wave2 = [("a", 200, False, "personal", 0.5, 2, None),
+             ("b", 512, True, "confidential", 0.5, 0, None),
+             ("c", 1024, False, "personal", 0.0, 0, None),
+             ("d", 200, False, "public", 0.0, 0, None),
+             ("e", 37, True, "public", 0.0, 0, None),
+             ("f", 37, False, "confidential", 1.0, 0, None),
+             ("g", 1024, True, "public", 1.0, 0, 1.0),
+             ("h", 512, False, "public", 0.0, 0, None)]
+    return wave1, wave2
+
+
+def run_fleet(cfg, params, lite, mini_cfg, mini):
+    """The ``fleet`` path: ``FleetController`` over the port's engines at
+    full width, on the host clock, tracer on.  Handles: ``cloud-a`` and
+    ``cloud-b`` (``PagedEngine``, full tier, the port's ``CLOUD``),
+    ``edge`` (dense ``Engine``, lite tier, ``EDGE``), and a speculative
+    pair ``draft`` (dense, mini tier, the unattested ``MCU``) ->
+    ``verify`` (dense, full tier), distribution mode, gamma 4.  Mid-run:
+    a live migration cloud-a -> cloud-b, the failure of cloud-b, a lossy
+    hand-off to edge inside the prefill domain and one outside it, and
+    cloud-a's uplink cut while the second wave arrives."""
+    from repro_torch.core.attestation import TrustAuthority
+    from repro_torch.core.channel import AttestedSession, NetworkCondition
+    from repro_torch.core.daemon import CLOUD, EDGE, MCU
+    from repro_torch import compression
+    from repro_torch.fleet import (EngineHandle, FleetController,
+                                   QualityTier, Rebalancer, RequestSpec,
+                                   RequestState, TERMINAL_STATES)
+    from repro_torch.fleet import balancer as bal
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.paged import PagedEngine
+
+    FULL, LITE = QualityTier("full", 1.0, "bf16"), QualityTier("lite", 0.6,
+                                                              "int8")
+    MINI = QualityTier("mini", 0.3, "small")
+    geo = dict(page_size=16, rows=4, max_len=2048, pages=160,
+               device="cuda")
+    dense = dict(slots=4, max_len=2048, device="cuda")
+    handles = [
+        EngineHandle("cloud-a", PagedEngine(cfg, params, seed=0, **geo),
+                     CLOUD, tier=FULL),
+        EngineHandle("cloud-b", PagedEngine(cfg, params, seed=1, **geo),
+                     CLOUD, tier=FULL),
+        EngineHandle("edge", Engine(cfg, lite, seed=2, **dense), EDGE,
+                     tier=LITE),
+        EngineHandle("draft", Engine(mini_cfg, mini, seed=3, **dense), MCU,
+                     tier=MINI),
+        EngineHandle("verify", Engine(cfg, params, seed=4, **dense), CLOUD,
+                     tier=FULL),
+    ]
+    calls = Calls()
+    for h in handles:
+        calls.watch(h.name, h.engine)
+    # shadow checkpoints every 8 fleet steps: each packs every in-flight
+    # slot (a dense slot is 201 MB at max_len 2048)
+    fleet = FleetController(handles, authority=TrustAuthority(),
+                            balancer=Rebalancer(sync_every=8),
+                            spec_tiers={"draft": "verify"},
+                            spec_options={"verify_mode": "distribution",
+                                          "gamma": 4}, tracer=True)
+    H = fleet.handles
+    rng = np.random.default_rng(SEED + 22)
+    wave1, wave2 = _fleet_traffic()
+    prompts = {}
+
+    def submit(wave):
+        for rid, n, sampled, sens, floor, prio, within in wave:
+            deadline = None if within is None else fleet.clock() + within
+            prompts[rid] = rng.integers(0, cfg.vocab_size, n)
+            fleet.submit(RequestSpec(
+                rid=rid, prompt=prompts[rid], max_new_tokens=32,
+                temperature=0.7 if sampled else 0.0,
+                top_k=16 if sampled else 0, sensitivity=sens,
+                priority=prio, deadline=deadline, quality_floor=floor))
+
+    def stage_targets(*engines):
+        t = dict(pack=(bal, "pack_slot"), unpack=(bal, "unpack_slot"),
+                 repack=(bal, "repack_slot"),
+                 compress=(compression, "compress"),
+                 decompress=(compression, "decompress"),
+                 seal_open=(AttestedSession, "transfer"))
+        for i, e in enumerate(engines):
+            t[f"extract{i}"] = (e, "extract_slot")
+            t[f"restore{i}"] = (e, "inject_slot")
+        return t
+
+    def record(label, before, spent, wire0):
+        """Print one action's migration records and its stage seconds."""
+        secs = {}
+        for k, v in spent.items():
+            k = k.rstrip("0123456789")
+            secs[k] = round(secs.get(k, 0.0) + v, 4)
+        moves = [f"{r.rid} {r.src} -> {r.dst} ({r.reason}, "
+                 f"{'lossy' if r.lossy else 'exact'}, {r.wire_bytes} bytes)"
+                 for r in fleet.telemetry.migrations[before:]]
+        log(f"fleet: {label}: {'; '.join(moves)}; host seconds by stage "
+            f"{secs}; simulated transfer {fleet.fabric.clock() - wire0:.4f}"
+            f" s ({gpu_line()})")
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    submit(wave1)
+    step_walls, profile_step, refused, handoff = [], None, None, {}
+    for step in range(600):
+        if step == 6:
+            # 1. a planned live migration of a greedy full-tier slot
+            xs = [s for s, r in H["cloud-a"].engine.requests.items()
+                  if r.rid == "x"]
+            if not xs:
+                raise AssertionError(f"fleet: x not on cloud-a: "
+                                     f"{fleet.placements}")
+            n0, wire0 = len(fleet.telemetry.migrations), fleet.fabric.clock()
+            with Stages(**stage_targets(H["cloud-a"].engine,
+                                        H["cloud-b"].engine)) as spent:
+                rec = fleet.balancer.live_migrate(H["cloud-a"], H["cloud-b"],
+                                                  xs[0], fleet)
+            fleet.telemetry.record_migration(rec)
+            record("live migration", n0, spent, wire0)
+        if step == 10:
+            # 2. cloud-b fails: its slots resume from shadow checkpoints
+            n0, wire0 = len(fleet.telemetry.migrations), fleet.fabric.clock()
+            with Stages(**stage_targets(H["cloud-a"].engine)) as spent:
+                fleet.fail("cloud-b")
+            record("failover", n0, spent, wire0)
+        if step == 11:
+            # 3. a lossy hand-off to edge inside the prefill domain (w:
+            # 37 + committed tokens) and one outside it (z: 512 + 11)
+            a = H["cloud-a"].engine
+            slot = {r.rid: s for s, r in a.requests.items()}
+            handoff["w"] = list(a.requests[slot["w"]].output)
+            n0, wire0 = len(fleet.telemetry.migrations), fleet.fabric.clock()
+            with Stages(**stage_targets(H["edge"].engine),
+                        reprefill=(H["edge"].engine, "add_request")) \
+                    as spent:
+                rec = fleet.balancer.migrate(H["cloud-a"], H["edge"],
+                                             slot["w"], fleet,
+                                             reason="cloud-a uplink")
+            fleet.telemetry.record_migration(rec)
+            record("lossy hand-off", n0, spent, wire0)
+            try:
+                fleet.balancer.migrate(H["cloud-a"], H["edge"], slot["z"],
+                                       fleet, reason="cloud-a uplink")
+            except bal.ReprefillRefused as e:
+                refused = str(e)
+            if refused is None or "z" not in {
+                    r.rid for r in a.requests.values()}:
+                raise AssertionError("fleet: z's out-of-domain hand-off "
+                                     "was not refused in place")
+            log(f"fleet: refused before anything moved: {refused}")
+            # then cloud-a's uplink goes down as the second wave arrives
+            fleet.set_link("cloud-a", NetworkCondition(up=False))
+            submit(wave2)
+        if step >= 20 and H["cloud-a"].cond is not None \
+                and fleet.tickets["g"].done:
+            # the uplink returns once g's deadline passed out of reach
+            fleet.set_link("cloud-a", None)
+        t = time.perf_counter()
+        if step == 14:
+            profile_step = profiled(fleet.step, "fleet step (cloud-a, edge, "
+                                    "draft + verify rounds)", 1)
+        else:
+            fleet.step()
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t)
+        conserved(fleet)
+        if all(tk.done for tk in fleet.tickets.values()):
+            break
+    wall = time.perf_counter() - t_path
+    counts = read_counts()
+    pred = calls.predict()
+    tel = fleet.telemetry
+    spec = fleet.spec_controllers["draft"].stats
+
+    # every ticket terminal; the expected outcomes
+    states = {rid: t.state for rid, t in fleet.tickets.items()}
+    if not all(s in TERMINAL_STATES for s in states.values()):
+        raise AssertionError(f"fleet: tickets not terminal {states}")
+    want = {rid: RequestState.DONE for rid in states}
+    want["g"] = RequestState.EXPIRED
+    if states != want:
+        raise AssertionError(f"fleet: states {states}")
+    out = {rid: list(t.output) for rid, t in fleet.tickets.items()}
+    lens = {r: len(o) for r, o in out.items()}
+    if any(lens[r] != 32 for r in want if r != "g"):
+        raise AssertionError(f"fleet: lengths {lens}")
+    # confidential data only on attested profiles, over its history
+    for rid, t in fleet.tickets.items():
+        if t.spec.sensitivity == "confidential":
+            bad = [h for h in fleet.placements.get(rid, [])
+                   if not H[h].profile.attested]
+            if bad:
+                raise AssertionError(f"fleet: confidential {rid} on {bad}")
+    # the moves: x exactly a -> b -> a, w lossily to edge with its prefix
+    if fleet.placements["x"] != ["cloud-a", "cloud-b", "cloud-a"] or \
+            fleet.placements["y"] != ["cloud-b", "cloud-a"]:
+        raise AssertionError(f"fleet: placements {fleet.placements}")
+    if fleet.placements["w"][-1] != "edge" or \
+            out["w"][:len(handoff["w"])] != handoff["w"]:
+        raise AssertionError("fleet: w's lossy hand-off lost its prefix")
+    if fleet.placements["z"] != ["cloud-a"]:
+        raise AssertionError(f"fleet: z moved {fleet.placements['z']}")
+    downs = [ev for ev in tel.quality_events() if ev.direction == "down"]
+    if not any(ev.reason == "link" and ev.dst_tier == "lite"
+               and ev.rid == "a" for ev in downs):
+        raise AssertionError(f"fleet: no link downshift of a: {downs}")
+    spec_rids = [rid for rid, h in fleet.placements.items()
+                 if "verify" in h]
+    if not spec_rids or spec.requests != len(spec_rids):
+        raise AssertionError(f"fleet: speculative {spec_rids} {spec}")
+    if counts != {**counts, **pred}:
+        raise AssertionError(f"fleet: launches {counts} != predicted "
+                             f"{pred} from {calls.n}")
+
+    # greedy requests that moved exactly, against a fresh engine
+    solo = PagedEngine(cfg, params, seed=9, **geo)
+    for rid in ("x", "y"):
+        ref = Request(rid, prompts[rid], max_new_tokens=32)
+        solo.add_request(ref)
+        while solo.requests:
+            solo.step()
+        if ref.output != out[rid]:
+            raise AssertionError(f"fleet: {rid} moved {fleet.placements[rid]}"
+                                 f" gave {out[rid]} != alone {ref.output}")
+    log("fleet: x (live migration cloud-a -> cloud-b, then failover back) "
+        "and y (failover cloud-b -> cloud-a) gave the tokens of the same "
+        "requests served alone on a fresh PagedEngine, bit for bit; w kept "
+        f"its {len(handoff['w'])} committed tokens across the lossy hand-off;"
+        " no confidential request touched an unattested engine")
+    s = tel.summary()
+    per = {n: (e["tokens"], e["tokens_per_s"])
+           for n, e in s["engines"].items()}
+    log(f"fleet: telemetry: engines {per} (tokens, tokens/s); latency p50 {s['fleet']['p50']} s, p99 "
+        f"{s['fleet']['p99']} s; queue wait p50 "
+        f"{s['lifecycle']['queue_wait_p50']} s; downshifts "
+        f"{s['lifecycle']['downshifts']}, failovers {s['fleet']['failovers']}"
+        f", migrations {s['fleet']['migrations']}")
+    kinds, dsts = {}, {}
+    for ev in tel.events:
+        kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
+        if ev.kind == "lifecycle":
+            dsts[ev.dst] = dsts.get(ev.dst, 0) + 1
+    tracer = fleet.tracer
+    tracer.close_open(reason="path done")
+    jits = sorted(f"{sp.engine}:{sp.name[4:]} "
+                  f"{sp.attrs['wall_s']:.3f}s"
+                  for sp in tracer.spans if sp.kind == "jit")
+    chrome = json.dumps(tracer.chrome_trace())
+    log(f"fleet: audit log {len(tel.events)} events {kinds}, lifecycle "
+        f"{dsts}; tracer {len(tracer.spans)} spans, {len(jits)} jit "
+        f"(first runs, wall) {jits}; Chrome trace {len(chrome)} bytes")
+    log(f"fleet: speculative pair draft (mini, 12 layers) -> verify: "
+        f"{spec.summary()}; spec_accept launches {counts['spec_accept']} = "
+        f"slots scored over {spec.rounds} verify rounds")
+    med = sorted(step_walls)[len(step_walls) // 2]
+    log(f"fleet: {len(step_walls)} fleet steps in {wall:.1f} s, median "
+        f"{med * 1e3:.1f} ms; the profiled step: wall {profile_step[0]:.1f}"
+        f" ms against its members' device busy {profile_step[1]:.1f} ms "
+        f"({gpu_line()})")
+    log(f"fleet: launches flash_attention={counts['flash_attention']}, "
+        f"paged_decode_attention={counts['paged_decode_attention']}, "
+        f"decode_attention={counts['decode_attention']}, spec_accept="
+        f"{counts['spec_accept']}: as predicted from {calls.n} "
+        f"(layers {calls.layers}), exactly")
+    return counts
+
+
+def run_replicate(cfg, params, lite, mini_cfg, mini):
+    """The ``replicate`` path: ``ReplicationManager`` over three dense
+    ``Engine(slots=2, max_len=1024)``s -- cloud (full), edge (lite),
+    device (mini) -- as the JAX package's scenario 1: four steps each
+    with a sync, the cloud cut and a failover, three steps on edge, a
+    merge on reconnect.  Then the daemon's decisions and its roofline
+    against a measured decode step."""
+    from repro_torch.core.attestation import measure_config
+    from repro_torch.core.daemon import CLOUD, PrivacyAwareDaemon
+    from repro_torch.core.migration import _pack_workspace
+    from repro_torch.core.replication import ReplicaTier, ReplicationManager
+    from repro_torch.core.workspace import AgentWorkspace
+    from repro_torch.models.init import param_bytes
+    from repro_torch.serving.engine import Engine, Request
+
+    mk = lambda c, p, s: Engine(c, p, slots=2, max_len=1024, seed=s,  # noqa
+                                device="cuda")
+    mgr = ReplicationManager([
+        ReplicaTier("cloud", mk(cfg, params, 0), 1.0, 1.0),
+        ReplicaTier("edge", mk(cfg, lite, 1), 0.8, 0.85),
+        ReplicaTier("device", mk(mini_cfg, mini, 2), 0.5, 0.8)])
+    calls = Calls()
+    for name, tier in mgr.tiers.items():
+        calls.watch(name, tier.engine)
+    gid = measure_config(cfg)
+    cloud = mgr.tiers["cloud"].engine
+    req = Request("draft-post", np.random.default_rng(SEED + 23).integers(
+        0, cfg.vocab_size, 200), max_new_tokens=24, sensitivity="personal")
+    zero_counts()
+    cloud.add_request(req)
+    step_prof, ws = None, None
+    for i in range(4):
+        if i == 2:
+            step_prof = profiled(cloud.step, "replicate decode step "
+                                 "(dense, 1 of 2 slots live)", 1)
+        else:
+            cloud.step()
+        t = time.perf_counter()
+        ws = AgentWorkspace.from_engine(cloud, gid, node="cloud")
+        sent = mgr.sync(ws)
+        log(f"replicate: sync {i + 1}: wire bytes {sent}, delta fraction "
+            f"{mgr.last_delta_fraction:.6f}, {time.perf_counter() - t:.3f} "
+            "s (host)")
+    before = list(req.output)
+    mgr.tiers["cloud"].cond.up = False
+    tier, latency = mgr.failover("disconnect")
+    st = mgr.last_failover_stages
+    log(f"replicate: failover to {tier.name} in {latency:.4f} s: unpack "
+        f"{st['unpack']:.4f}, place {st['place']:.4f}, attach "
+        f"{st['attach']:.4f} s (host seconds on the card's machine, "
+        f"{gpu_line()}; the paper's budget is 0.2 s)")
+    if tier.name != "edge" or tier.functionality != 0.85:
+        raise AssertionError(f"replicate: failed over to {tier}")
+    edge = tier.engine
+    (cont,) = edge.requests.values()
+    for _ in range(3):
+        edge.step()
+    if cont.output[:len(before)] != before or \
+            len(cont.output) != len(before) + 3:
+        raise AssertionError(f"replicate: {cont.output} after {before}")
+    mine = AgentWorkspace.from_engine(edge, gid, node="edge")
+    merged = mgr.merge_on_reconnect(mine, ws, local_tier="edge",
+                                    remote_tier="cloud")
+    (got,) = merged.requests
+    if got["output"] != before or merged.vclock.clocks != \
+            {"cloud": 1, "edge": 1}:
+        raise AssertionError(f"replicate: merged {got['output']} "
+                             f"{merged.vclock.clocks}")
+    log(f"replicate: edge kept the {len(before)} synced tokens and decoded "
+        f"3 more on the lite weights; merge on reconnect kept cloud's "
+        f"{len(got['output'])} (higher quality), clocks "
+        f"{merged.vclock.clocks}")
+    counts = read_counts()
+    pred = calls.predict()
+    if counts != {**counts, **pred}:
+        raise AssertionError(f"replicate: launches {counts} != {pred}")
+    log(f"replicate: launches flash_attention={counts['flash_attention']}, "
+        f"decode_attention={counts['decode_attention']} as predicted from "
+        f"{calls.n}, exactly")
+
+    daemon = PrivacyAwareDaemon()
+    nbytes = len(_pack_workspace(ws))
+    work = dict(cfg=cfg, prefill_tokens=1024, decode_tokens=1024,
+                workspace_bytes=nbytes)
+    for sens in ("public", "personal", "confidential"):
+        d = daemon.decide(sensitivity=sens, **work)
+        log(f"daemon: llama-1.5b {sens}, prefill 1024 + decode 1024 tokens, "
+            f"workspace {nbytes} bytes: {d.target} ({d.reason}; local "
+            f"{d.est_local_s:.4f} s, remote {d.est_remote_s:.4f} s)")
+    t_pred = PrivacyAwareDaemon.step_time(cfg, CLOUD, decode_tokens=1)
+    log(f"daemon: step_time predicts {t_pred * 1e3:.4f} ms a decode token "
+        f"on CLOUD ({param_bytes(cfg)} weight bytes / {CLOUD.hbm_bw:.3g} "
+        f"B/s, H100 SXM data sheet); measured on this path: a decode step "
+        f"wall {step_prof[0]:.3f} ms, device busy {step_prof[1]:.3f} ms "
+        f"({gpu_line()})")
+    return counts
+
+
+
+# ---------------------------------------------------------------------------
 # phase 6: rwkv6-7b on the dense Engine at full width
 # ---------------------------------------------------------------------------
 
@@ -2205,7 +2741,18 @@ def main() -> int:
     drive("self_draft", run_self_draft, cfg, params)
     drive("migrate", run_migrate, cfg, params)
     drive("prefix", run_prefix, cfg, params)
-    del params, draft
+    t0 = time.perf_counter()
+    lite = int8_round_trip(params)
+    mini_cfg = mini_config(cfg)
+    mini = init_params(mini_cfg, torch.Generator("cuda").manual_seed(9),
+                       device="cuda")
+    torch.cuda.synchronize()
+    log(f"fleet: lite tier (int8 round trip of seed {SEED}) and mini tier "
+        f"({mini_cfg.num_layers} layers, {mini_cfg.param_count() / 1e9:.3f}"
+        f"B params, seed 9) built in {time.perf_counter() - t0:.2f} s")
+    drive("fleet", run_fleet, cfg, params, lite, mini_cfg, mini)
+    drive("replicate", run_replicate, cfg, params, lite, mini_cfg, mini)
+    del params, draft, lite, mini
     torch.cuda.empty_cache()
     rcfg = get("rwkv6-7b")
     t0 = time.perf_counter()

@@ -1,10 +1,14 @@
-"""The simulated byte channel and the attested session over it (the
-port's copy of the parts of the JAX package's ``core.channel`` that the
-migration path uses).
+"""The simulated byte fabric and the attested session over it (the
+port's copy of the JAX package's ``core.channel`` without its message
+transports, which only the fleet's service mode uses).
 
 A ``Channel`` is a byte pipe whose latency, bandwidth and packet loss
 are modelled against a deterministic ``SimClock``: the migration report
-reads transfer time off the clock.  Everything above the byte layer is
+reads transfer time off the clock.  A ``Fabric`` holds one channel per
+engine pair on one shared clock; link conditions are properties of the
+*path*: ``Fabric.path`` composes the per-pair condition with each
+endpoint's own uplink condition (latencies add, bandwidth is the min,
+loss compounds, up = every segment up).  Everything above the byte layer is
 real protocol code: the attested TLS-style handshake, the session key
 bound to both quotes, the sealed transfer with integrity, and multi-hop
 transitive chains.
@@ -62,6 +66,145 @@ class Channel:
         for tap in self.taps:
             data = tap(data)
         return data
+
+
+class ComposedCondition:
+    """Effective condition of a multi-segment path.
+
+    Latencies add, bandwidth is the narrowest segment, loss compounds
+    (a packet survives only if it survives every segment), and the path
+    is up only when every segment is up.  Duck-types
+    ``NetworkCondition`` so channels, tier policy and router cost can
+    consume either.
+    """
+
+    def __init__(self, *parts):
+        self.parts = [p for p in parts if p is not None]
+
+    @property
+    def latency_s(self) -> float:
+        return sum(p.latency_s for p in self.parts)
+
+    @property
+    def bandwidth_bps(self) -> float:
+        return min((p.bandwidth_bps for p in self.parts), default=1e9)
+
+    @property
+    def loss(self) -> float:
+        keep = 1.0
+        for p in self.parts:
+            keep *= 1.0 - min(p.loss, 0.99)
+        return 1.0 - keep
+
+    @property
+    def up(self) -> bool:
+        return all(p.up for p in self.parts)
+
+    transfer_time = NetworkCondition.transfer_time
+
+
+class PathCondition:
+    """Live view of the path a<->b on a fabric: endpoint uplink of
+    ``a``, the pair condition, endpoint uplink of ``b``, composed at
+    read time so later ``set_link``/``set_endpoint`` calls are seen by
+    channels already handed out.  ``endpoints=False`` reads only the
+    pair segment -- a pinned circuit that ignores uplink outages."""
+
+    def __init__(self, fabric: "Fabric", a: str, b: str, *,
+                 endpoints: bool = True):
+        self.fabric, self.a, self.b = fabric, a, b
+        self.endpoints = endpoints
+
+    def _now(self) -> ComposedCondition:
+        if not self.endpoints:
+            return ComposedCondition(self.fabric.pair_cond(self.a, self.b))
+        return self.fabric.path(self.a, self.b)
+
+    @property
+    def latency_s(self) -> float:
+        return self._now().latency_s
+
+    @property
+    def bandwidth_bps(self) -> float:
+        return self._now().bandwidth_bps
+
+    @property
+    def loss(self) -> float:
+        return self._now().loss
+
+    @property
+    def up(self) -> bool:
+        return self._now().up
+
+    transfer_time = NetworkCondition.transfer_time
+
+
+class Fabric:
+    """Cluster interconnect: one ``Channel`` per engine pair, all ticking
+    the same ``SimClock`` so fleet-wide transfer timings compose.  Links
+    default to ``default_cond`` until ``set_link`` gives a pair its own
+    conditions (a lossy edge uplink next to a fast pod fabric).  Each
+    node may additionally register its own uplink condition via
+    ``set_endpoint``; ``path`` composes endpoint + pair + endpoint so
+    conditions are properties of the route, not of a single global
+    knob."""
+
+    def __init__(self, default_cond: NetworkCondition | None = None):
+        self.clock = SimClock()
+        self.default_cond = default_cond or NetworkCondition()
+        self._conds: dict[frozenset, NetworkCondition] = {}
+        self._endpoints: dict[str, NetworkCondition] = {}
+        self._links: dict[frozenset, Channel] = {}
+        self._pair_links: dict[frozenset, Channel] = {}
+
+    def set_link(self, a: str, b: str, cond: NetworkCondition):
+        self._conds[frozenset((a, b))] = cond
+        self._links.pop(frozenset((a, b)), None)
+
+    def set_endpoint(self, name: str, cond: NetworkCondition | None):
+        if cond is None:
+            self._endpoints.pop(name, None)
+        else:
+            self._endpoints[name] = cond
+
+    def endpoint(self, name: str) -> NetworkCondition | None:
+        return self._endpoints.get(name)
+
+    def pair_cond(self, a: str, b: str) -> NetworkCondition:
+        return self._conds.get(frozenset((a, b)), self.default_cond)
+
+    def path(self, a: str, b: str, *,
+             end_a: NetworkCondition | None = None,
+             end_b: NetworkCondition | None = None) -> ComposedCondition:
+        """Effective condition of the a->b route: a's uplink, the pair
+        link, b's uplink.  Explicit ``end_*`` override the registered
+        endpoint conditions (the router passes a handle's tier uplink
+        here)."""
+        return ComposedCondition(
+            end_a if end_a is not None else self._endpoints.get(a),
+            self.pair_cond(a, b),
+            end_b if end_b is not None else self._endpoints.get(b),
+        )
+
+    def link(self, a: str, b: str) -> Channel:
+        key = frozenset((a, b))
+        if key not in self._links:
+            self._links[key] = Channel(cond=PathCondition(self, a, b),
+                                       clock=self.clock)
+        return self._links[key]
+
+    def pair_link(self, a: str, b: str) -> Channel:
+        """A pinned circuit between two co-provisioned engines (a
+        draft/verify tier pair's dedicated interconnect): the channel
+        reads only the live pair-level condition, so endpoint uplink
+        outages -- which gate routing and client traffic -- do not sever
+        an established intra-pair wire."""
+        key = frozenset((a, b))
+        if key not in self._pair_links:
+            self._pair_links[key] = Channel(
+                cond=PathCondition(self, a, b, endpoints=False),
+                clock=self.clock)
+        return self._pair_links[key]
 
 
 class AttestedSession:

@@ -13,7 +13,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tree import from_host, host_array
+from repro_torch.core.tree import LeafSpec, from_host, host_array, leaves
 from repro_torch.device import resolve
 from repro_torch.models.schema import ParamDef, model_schema, tree_map
 
@@ -65,6 +65,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return a
 
     return tree_map(make, model_schema(cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """``LeafSpec`` tree of the parameters on the ``meta`` device: shapes
+    and dtypes, no allocation (the JAX ``ShapeDtypeStruct`` tree)."""
+    meta = torch.device("meta")
+    return tree_map(lambda pd: LeafSpec(tuple(pd.shape),
+                                        torch_dtype(pd.dtype), meta),
+                    model_schema(cfg))
+
+
+def param_bytes(cfg: ModelConfig) -> int:
+    return sum(math.prod(pd.shape) * torch_dtype(pd.dtype).itemsize
+               for pd in leaves(model_schema(cfg)))
+
+
+def count_params(cfg: ModelConfig) -> int:
+    return sum(math.prod(pd.shape) for pd in leaves(model_schema(cfg)))
 
 
 # ---------------------------------------------------------------------------

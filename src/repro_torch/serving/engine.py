@@ -27,13 +27,18 @@ The migration surface (``extract_slot``, ``inject_slot``,
 state alike), tokens, position, RNG and policy as a ``SlotSnapshot``
 (wire version 1, ``core.migration``).  On models with recurrent mixers
 the verify modes and ``rollback_slot`` are a later slice (ROADMAP
-Queue 1 item 7).  This module also carries the ``Request`` record, its
+Queue 1 item 7).  ``profile_hook`` receives the wall time of each
+program's first run on an engine (the fleet's tracer reads it).  This
+module also carries the ``Request`` record, its
 wire form and the slot snapshot types, which ``serving.paged``
 imports.
 """
 
 from __future__ import annotations
 
+import inspect
+import time
+import warnings
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Optional
@@ -49,6 +54,53 @@ from repro_torch.kernels.ops import check_domain
 from repro_torch.models.model import forward, make_cache, vocab_mask_logits
 from repro_torch.serving.program_cache import get_programs
 from repro_torch.serving.sampling import policy_probs, rng_state, sample
+
+
+def _call_profile_hook(hook, key: str, wall_s: float, *,
+                       cache_hit: bool = False):
+    """Invoke a profile hook, passing ``cache_hit`` only to hooks that
+    can take it (a ``cache_hit`` parameter or ``**kwargs``); legacy
+    two-positional hooks keep working unchanged."""
+    try:
+        params = inspect.signature(hook).parameters
+    except (TypeError, ValueError):
+        hook(key, wall_s)
+        return
+    if "cache_hit" in params or any(
+            p.kind is inspect.Parameter.VAR_KEYWORD
+            for p in params.values()):
+        hook(key, wall_s, cache_hit=cache_hit)
+    else:
+        hook(key, wall_s)
+
+
+def _run_profiled(engine, key: str, fn):
+    """Run ``fn``; if this is the first run of program ``key`` on
+    ``engine``, time it to completion (``torch.cuda.synchronize`` on a
+    card engine) and report it to ``engine.profile_hook``.  Warm keys run
+    untouched, and a key is marked warm even with no hook attached, so a
+    hook wired in later never reports an already-run program as a first
+    run.  A key another engine already ran through the shared program
+    set is reported with ``cache_hit=True``.  On the card a program's
+    first run includes the kernels' ``nvcc`` build when it is their
+    first use in the process, so the tracer's ``jit:`` span shows that
+    build."""
+    if key in engine._compiled:
+        return fn()
+    engine._compiled.add(key)
+    shared = engine._programs.compiled
+    warm = key in shared
+    shared.add(key)
+    if engine.profile_hook is None:
+        return fn()
+    t0 = time.perf_counter()
+    out = fn()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    _call_profile_hook(engine.profile_hook, key, time.perf_counter() - t0,
+                       cache_hit=warm)
+    return out
+
 
 _MIX = 0x9E3779B97F4A7C15        # golden-ratio multiplier (splitmix64)
 _MASK63 = (1 << 63) - 1
@@ -179,7 +231,8 @@ class Engine:
     page_size = 0                    # >0 only on paged engines
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
-                 max_len: int = 256, seed: int = 0, device="cuda"):
+                 max_len: int = 256, seed: int = 0, device="cuda",
+                 profile_hook=None):
         self.device = resolve(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, engine "
@@ -207,10 +260,14 @@ class Engine:
         self._prefill_fn = self._programs.fns["prefill"]
         self._verify_fn = self._programs.fns["verify"]
         self._decode_probs = self._programs.fns["probs"]
+        # ``profile_hook(key, wall_s[, cache_hit=])`` receives the wall
+        # time of each program key's first run on this engine (see
+        # ``_profiled``); the fleet points it at its tracer
+        self.profile_hook = profile_hook
+        self._compiled: set[str] = set()
 
-    def _run(self, key: str, fn):
-        self._programs.compiled.add(key)
-        return fn()
+    def _profiled(self, key: str, fn):
+        return _run_profiled(self, key, fn)
 
     # -- state ------------------------------------------------------------
     def _fresh_state(self, seed: int) -> EngineState:
@@ -280,7 +337,7 @@ class Engine:
         s.temperature[slot] = req.temperature
         s.top_k[slot] = req.top_k
         prompt = torch.from_numpy(prefix).to(self.device)[None]
-        self.state = self._run(
+        self.state = self._profiled(
             f"prefill[plen={plen}]",
             lambda: self._prefill_fn(self.params, s, prompt, slot=slot,
                                      plen=plen))
@@ -309,7 +366,7 @@ class Engine:
         verifier rules on them."""
         if not self.requests:
             return {}
-        self.state, toks = self._run(
+        self.state, toks = self._profiled(
             "decode", lambda: self._decode_fn(self.params, self.state))
         return self._emit(toks, auto_retire)
 
@@ -321,7 +378,7 @@ class Engine:
         the draft side of distribution-level speculative acceptance."""
         if not self.requests:
             return {}, None
-        self.state, toks, probs = self._run(
+        self.state, toks, probs = self._profiled(
             "decode_probs",
             lambda: self._decode_probs(self.params, self.state))
         emitted = self._emit(toks, auto_retire)
@@ -462,7 +519,7 @@ class Engine:
             cnt[slot] = len(toks)
             mask[slot] = True
         dev = self.device
-        self.state, n_acc, commit = self._run(
+        self.state, n_acc, commit = self._profiled(
             "verify_wide",
             lambda: self._verify_fn(self.params, self.state,
                                     torch.from_numpy(arr).to(dev),
@@ -607,6 +664,26 @@ class Engine:
             s.tokens[slot, new_pos - 1] = commit_token
             s.last_token[slot] = commit_token
         s.positions[slot] = new_pos
+
+    def run(self, reqs: list[Request]) -> dict[str, list[int]]:
+        """Deprecated: drive ``add_request``/``step`` directly (or submit
+        ``RequestSpec``s to a ``FleetController``)."""
+        warnings.warn(
+            "Engine.run() is deprecated; drive add_request()/step() "
+            "directly or submit RequestSpecs to a FleetController",
+            DeprecationWarning, stacklevel=2)
+        return self._run(reqs)
+
+    def _run(self, reqs: list[Request]) -> dict[str, list[int]]:
+        pending = list(reqs)
+        outputs = {}
+        while pending or self.requests:
+            while pending and self.add_request(pending[0]):
+                outputs[pending[0].rid] = pending[0].output
+                pending.pop(0)
+            if self.requests:
+                self.step()
+        return outputs
 
 
 # ---------------------------------------------------------------------------

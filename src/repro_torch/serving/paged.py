@@ -48,7 +48,8 @@ from repro_torch.models.layers import make_paged_attn_cache
 from repro_torch.models.model import forward
 from repro_torch.core.tree import LeafSpec, register_node
 from repro_torch.serving.engine import (Request, SlotArrays, SlotSnapshot,
-                                        request_from_dict, request_to_dict)
+                                        _run_profiled, request_from_dict,
+                                        request_to_dict)
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.program_cache import get_programs
 from repro_torch.serving.sampling import rng_state, sample
@@ -144,10 +145,13 @@ class PagedEngineState:
 class PagedEngine:
     """Serving engine over a paged KV cache (attention-only decoders)."""
 
+    paged = True                     # the fleet reads the KV layout here
+
     def __init__(self, cfg: ModelConfig, params, *, page_size: int = 16,
                  pages: int | None = None, rows: int = 4,
                  max_len: int = 256, seed: int = 0, device="cuda",
-                 prefix_cache: bool = False, shared_tenants: tuple = ()):
+                 profile_hook=None, prefix_cache: bool = False,
+                 shared_tenants: tuple = ()):
         if not (all(ls.mixer in ("attn", "local")
                     for b in cfg.blocks for ls in b.layers)
                 and not cfg.cross_attention and not cfg.encoder_blocks):
@@ -167,6 +171,7 @@ class PagedEngine:
         # default pool: every row could hold a full max_len request
         self.pages = pages if pages is not None else rows * self.np_pages
         self.rows = rows
+        self.slots = rows                        # duck-type: load metric
         self.max_len = max_len
         self.requests: dict[int, Request] = {}
         self.allocator = PageAllocator(self.pages)
@@ -182,6 +187,8 @@ class PagedEngine:
         self._decode_fn = self._programs.fns["decode"]
         self._prefill_fn = self._programs.fns["prefill"]
         self._suffix_fn = self._programs.fns["suffix"]
+        self.profile_hook = profile_hook       # as on the dense engine
+        self._compiled: set[str] = set()
         # -- multi-tenant prefix sharing (opt-in) ---------------------------
         self.prefix_cache = None
         self._shared: dict[int, list] = {}   # row -> referenced PrefixNodes
@@ -202,9 +209,8 @@ class PagedEngine:
     def page_bytes(self) -> int:
         return self.kv_token_bytes * self.page_size
 
-    def _run(self, key: str, fn):
-        self._programs.compiled.add(key)
-        return fn()
+    def _profiled(self, key: str, fn):
+        return _run_profiled(self, key, fn)
 
     # -- state ------------------------------------------------------------
     def _fresh_state(self, seed: int) -> PagedEngineState:
@@ -370,7 +376,7 @@ class PagedEngine:
             self._warm_start(row, prefix)
         elif hit == 0:
             prompt = torch.from_numpy(prefix).to(self.device)[None]
-            self.state = self._run(
+            self.state = self._profiled(
                 f"prefill[plen={plen}]",
                 lambda: self._prefill_fn(self.params, s, prompt, slot=row,
                                          plen=plen))
@@ -382,7 +388,7 @@ class PagedEngine:
             self._warm_start(row, prefix[:hit])
             suffix = torch.from_numpy(prefix[hit:]).to(self.device)[None]
             slen = plen - hit
-            self.state = self._run(
+            self.state = self._profiled(
                 f"suffix[slen={slen}]",
                 lambda: self._suffix_fn(self.params, self.state, suffix,
                                         slot=row, slen=slen))
@@ -500,7 +506,7 @@ class PagedEngine:
     def step(self, *, auto_retire: bool = True) -> dict[str, int]:
         if not self.requests:
             return {}
-        self.state, toks = self._run(
+        self.state, toks = self._profiled(
             "decode", lambda: self._decode_fn(self.params, self.state))
         toks = toks.cpu().numpy()
         emitted = {}

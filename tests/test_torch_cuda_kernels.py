@@ -1039,3 +1039,76 @@ def test_tiny_rwkv_engine_on_the_card_runs_the_scan(cuda):
     while fresh.requests:
         fresh.step()
     assert again.output == ref.output
+
+
+def _tiny_on_card(cuda, seed=0):
+    from repro_torch.configs import get
+    from repro_torch.configs.tiny import make_tiny
+    from repro_torch.models.init import init_params
+    cfg = make_tiny(get("llama-1.5b"), d_model=256)
+    return cfg, init_params(cfg, torch.Generator(cuda).manual_seed(seed),
+                            cuda)
+
+
+@pytest.mark.cuda
+def test_fleet_failover_on_the_card_resumes_bit_for_bit(cuda):
+    """Two one-row PagedEngines in a fleet (head dim 64): the engine
+    holding a greedy request fails mid-decode, the balancer re-places
+    the request from its shadow checkpoint (wire v2) on the other, and
+    its tokens equal the request served alone on a fresh engine."""
+    from repro_torch.core.attestation import TrustAuthority
+    from repro_torch.core.daemon import CLOUD
+    from repro_torch.fleet import EngineHandle, FleetController, RequestSpec
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.paged import PagedEngine
+    cfg, params = _tiny_on_card(cuda)
+    mk = lambda seed: PagedEngine(cfg, params, page_size=16, rows=1,  # noqa
+                                  max_len=128, seed=seed, device=cuda)
+    prompt = np.arange(3, 40) % 500
+    solo = mk(9)
+    ref = Request("ref", prompt, max_new_tokens=16)
+    solo.add_request(ref)
+    while solo.requests:
+        solo.step()
+    fleet = FleetController([EngineHandle("a", mk(0), CLOUD),
+                             EngineHandle("b", mk(1), CLOUD)],
+                            authority=TrustAuthority())
+    t = fleet.submit(RequestSpec(rid="r", prompt=prompt, max_new_tokens=16))
+    for _ in range(5):
+        fleet.step()
+    src = fleet.placement_of("r")
+    fleet.fail(src)
+    assert t.result() == ref.output
+    assert fleet.placements["r"] == [src, "b" if src == "a" else "a"]
+    (rec,) = fleet.telemetry.migrations
+    assert rec.reason == "failover" and not rec.lossy
+
+
+@pytest.mark.cuda
+def test_fleet_distribution_pair_launches_spec_accept_once_a_round(cuda):
+    """A draft (seed 1) -> verify (seed 0) pair in ``distribution``
+    mode on the card: every verify round of the one-slot pair launches
+    ``spec_accept`` once, and the committed stream is complete."""
+    from repro_torch.core.attestation import TrustAuthority
+    from repro_torch.core.daemon import CLOUD, EDGE
+    from repro_torch.fleet import EngineHandle, FleetController, RequestSpec
+    from repro_torch.serving.engine import Engine
+    cfg, target = _tiny_on_card(cuda, 0)
+    _, draft = _tiny_on_card(cuda, 1)
+    fleet = FleetController(
+        [EngineHandle("draft", Engine(cfg, draft, slots=1, max_len=128,
+                                      device=cuda), EDGE),
+         EngineHandle("verify", Engine(cfg, target, slots=1, max_len=128,
+                                       device=cuda), CLOUD)],
+        authority=TrustAuthority(), spec_tiers={"draft": "verify"},
+        spec_options={"verify_mode": "distribution", "gamma": 4})
+    n0 = sv.spec_accept.launches
+    ts = [fleet.submit(RequestSpec(rid=f"r{i}", prompt=np.arange(5, 30 + i),
+                                   max_new_tokens=12,
+                                   temperature=0.7 * i, top_k=16 * i))
+          for i in range(2)]
+    for t in ts:
+        assert len(t.result()) == 12
+    st = fleet.spec_controllers["draft"].stats
+    assert st.requests == 2 and st.rounds > 0
+    assert sv.spec_accept.launches - n0 == st.rounds

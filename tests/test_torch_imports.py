@@ -24,6 +24,9 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+core = importlib.import_module("repro_torch.core")
+for n in core.__all__:        # the lazy re-exports resolve too
+    getattr(core, n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
@@ -39,7 +42,13 @@ missing = sorted({{"repro_torch.core.speculation", "repro_torch.core.validation"
                   "repro_torch.core.channel", "repro_torch.core.attestation",
                   "repro_torch.core.crypto", "repro_torch.core.msgpack_subset",
                   "repro_torch.compression",
-                  "repro_torch.serving.prefix_cache"}} - set(names))
+                  "repro_torch.serving.prefix_cache",
+                  "repro_torch.core.daemon", "repro_torch.core.replication",
+                  "repro_torch.fleet", "repro_torch.fleet.lifecycle",
+                  "repro_torch.fleet.tracing", "repro_torch.fleet.telemetry",
+                  "repro_torch.fleet.router", "repro_torch.fleet.balancer",
+                  "repro_torch.fleet.speculative",
+                  "repro_torch.fleet.cluster"}} - set(names))
 assert not missing, missing
 print(len(names), bad)
 """
@@ -58,7 +67,7 @@ def test_port_imports_neither_jax_nor_repro():
         cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().rsplit("\n", 1)[-1].split(" ", 1)
-    assert int(n) >= 30, out.stdout          # every module was imported
+    assert int(n) >= 40, out.stdout          # every module was imported
     assert bad == "[]", bad
 
 
