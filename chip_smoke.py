@@ -81,6 +81,31 @@ the result line):
                             lite replica, a merge on reconnect; then the
                             daemon's decisions and its decode roofline
                             against a measured step
+               service      the fleet's service mode: a ``ControlPlane``
+                            over ``SocketTransport``, a thread per
+                            ``PagedEngine`` (a, b, c; the paged geometry,
+                            one program set), twelve requests (the paged
+                            prompt lengths twice, 32 new, greedy and
+                            sampled, three sensitivities); b's service
+                            killed once it holds a shadowed slot, the
+                            heartbeat detector failing it over; every
+                            ticket done once, greedy ones against the same
+                            request alone bit for bit; frames, retries,
+                            injects; then the concurrency ratio: the same
+                            requests through one engine in the sync fleet
+                            and through the three-engine socket fleet
+               autoscale    a sync fleet over one seed ``PagedEngine`` with
+                            an ``Autoscaler`` (one warm standby, pool 1-3,
+                            spawn at a queue depth of 3): the promotion,
+                            spawns served the seed's programs, the spawned
+                            engines drained once the queue is empty,
+                            conservation every step, greedy requests bit
+                            for bit
+               cli          ``repro_torch.launch.serve`` and
+                            ``repro_torch.launch.fleet --transport socket``
+                            in-process at full width
+               each of the three with its launches equal to the engines'
+               own program counts (24 x cold prefills, 24 x decode steps)
                then rwkv6-7b at full width (bf16, seed 0; llama freed):
                rwkv         ``Engine(slots=4, max_len=2048)``: four
                             requests, rwkv6_scan launched 32 times per
@@ -93,6 +118,7 @@ the result line):
                             second engine (seed 9) with the unmigrated
                             run's tokens
   5. the kernels' JSON line, the card line, and the result line
+
 """
 
 from __future__ import annotations
@@ -1966,21 +1992,6 @@ def run_prefix(cfg, params) -> dict:
 # the fleet path: the sync-mode fleet, replication and the placement daemon
 # ---------------------------------------------------------------------------
 
-def int8_round_trip(params):
-    """The lite tier's weights: every floating leaf through a per-tensor
-    symmetric int8 round trip (the JAX package's ``quantize_int8`` /
-    ``dequantize_int8``, as ``tests/test_fleet_quality.py`` builds it)."""
-    from repro_torch.core.tree import tree_map
-
-    def one(w):
-        if not w.is_floating_point():
-            return w
-        scale = (w.float().abs().max() + 1e-12) / 127.0
-        q = torch.clamp(torch.round(w.float() / scale), -127, 127)
-        return (q * scale).to(w.dtype)
-    return tree_map(one, params)
-
-
 def mini_config(cfg):
     """The mini tier: the first half of the model's layers (the JAX
     tests' ``SMALL_CFG``), under its own name."""
@@ -2481,6 +2492,641 @@ def run_replicate(cfg, params, lite, mini_cfg, mini):
 # phase 6: rwkv6-7b on the dense Engine at full width
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# service mode, the autoscaler and the CLIs
+# ---------------------------------------------------------------------------
+
+class Programs:
+    """The engines' own program counts on a path.  Every prefill and
+    decode forward of the port's engines goes through
+    ``engine._profiled(key, fn)``; while the context is open this counts
+    them by engine and kind, under a lock (service threads run them):
+    a cold prefill launches flash_attention once a layer, a decode step
+    paged or dense decode once a layer.  A program of another kind
+    (a suffix prefill, a verify window) is not on these paths and
+    fails the count."""
+
+    def __init__(self):
+        import threading
+        self.lock = threading.Lock()
+        self.n: dict[tuple[str, str], int] = {}
+        self.layers: dict[str, tuple[int, bool]] = {}
+        self.names: dict[int, str] = {}
+        self._keep, self._saved = [], []
+
+    def name(self, eng, label: str):
+        with self.lock:
+            self.names[id(eng)] = label
+            self._keep.append(eng)
+
+    def _label(self, eng) -> str:
+        key = id(eng)
+        if key not in self.names:
+            self.names[key] = f"{type(eng).__name__}#{len(self.names)}"
+            self._keep.append(eng)
+        label = self.names[key]
+        self.layers[label] = (eng.cfg.num_layers, eng.paged)
+        return label
+
+    def __enter__(self):
+        from repro_torch.serving.engine import Engine
+        from repro_torch.serving.paged import PagedEngine
+        for cls in (Engine, PagedEngine):
+            orig = cls.__dict__["_profiled"]
+
+            def counted(eng, key, fn, _orig=orig):
+                out = _orig(eng, key, fn)
+                kind = "prefill" if key.startswith("prefill[") else key
+                if kind not in ("prefill", "decode"):
+                    raise AssertionError(f"program {key!r} is not on this "
+                                         "path")
+                with self.lock:
+                    k = (self._label(eng), kind)
+                    self.n[k] = self.n.get(k, 0) + 1
+                return out
+            self._saved.append((cls, orig))
+            cls._profiled = counted
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self._saved:
+            cls._profiled = orig
+
+    def predict(self) -> dict:
+        pred = dict.fromkeys(wrappers(), 0)
+        for label, (layers, paged) in self.layers.items():
+            pred["flash_attention"] += layers * self.n.get((label, "prefill"),
+                                                           0)
+            pred["paged_decode_attention" if paged else "decode_attention"] \
+                += layers * self.n.get((label, "decode"), 0)
+        return pred
+
+    def check(self, path: str, counts: dict):
+        pred = self.predict()
+        if counts != pred:
+            raise AssertionError(f"{path}: launches {counts} != predicted "
+                                 f"{pred} from {self.n}")
+        per = {lab: (self.n.get((lab, "prefill"), 0),
+                     self.n.get((lab, "decode"), 0))
+               for lab in sorted(self.layers)}
+        log(f"{path}: launches flash_attention={counts['flash_attention']}, "
+            f"paged_decode_attention={counts['paged_decode_attention']}, "
+            f"decode_attention={counts['decode_attention']}: as predicted "
+            f"from the engines' programs (engine: cold prefills, decode "
+            f"steps) {per}, exactly")
+
+
+def _service_traffic(cfg):
+    """Twelve requests: the paged path's prompt lengths twice, 32 new
+    tokens, greedy and ``temperature=0.7, top_k=16`` alternating, the
+    three sensitivities in turn."""
+    from repro_torch.fleet import RequestSpec
+    rng = np.random.default_rng(SEED + 23)
+    sens = ("public", "personal", "confidential")
+    return [RequestSpec(rid=f"s{i}",
+                        prompt=rng.integers(0, cfg.vocab_size, n),
+                        max_new_tokens=32,
+                        temperature=0.7 if i % 2 else 0.0,
+                        top_k=16 if i % 2 else 0, sensitivity=sens[i % 3])
+            for i, n in enumerate((37, 200, 511, 512, 1024, 1536) * 2)]
+
+
+SERVICE_GEO = dict(page_size=16, rows=4, max_len=2048, pages=160,
+                   device="cuda")
+_SOLO: dict[bytes, list[int]] = {}
+_SOLO_S: list = []                 # host seconds of each solo reference
+
+
+def solo_tokens(cfg, params, spec, eng=None) -> list[int]:
+    """The greedy request served alone on an engine of the paged
+    geometry (a fresh one unless ``eng`` is given), remembered by
+    prompt."""
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.paged import PagedEngine
+    key = np.asarray(spec.prompt).tobytes()
+    if key not in _SOLO:
+        t = time.perf_counter()
+        eng = eng or PagedEngine(cfg, params, seed=9, **SERVICE_GEO)
+        req = Request(spec.rid, spec.prompt, max_new_tokens=32)
+        _serve(eng, [req])
+        _SOLO[key] = list(req.output)
+        _SOLO_S.append(time.perf_counter() - t)
+    return _SOLO[key]
+
+
+def _terminal_once(fleet, rid) -> bool:
+    from repro_torch.fleet import TERMINAL_STATES
+    ends = {s.value for s in TERMINAL_STATES}
+    return [ev.dst for ev in fleet.telemetry.events_of(rid)
+            if ev.dst in ends] == ["done"]
+
+
+def _check_served(label, cfg, params, fleet, specs, solo_eng=None):
+    """Every ticket DONE exactly once with 32 in-vocabulary tokens; every
+    greedy one equal to the same request served alone."""
+    from repro_torch.fleet import RequestState
+    for spec in specs:
+        t = fleet.tickets[spec.rid]
+        out = list(t.output)
+        if t.state is not RequestState.DONE or len(out) != 32 \
+                or not all(0 <= x < cfg.vocab_size for x in out) \
+                or not _terminal_once(fleet, spec.rid):
+            raise AssertionError(f"{label}: {spec.rid} {t.state.value} "
+                                 f"{out}")
+        if spec.temperature == 0.0:
+            want = solo_tokens(cfg, params, spec, solo_eng)
+            if out != want:
+                raise AssertionError(
+                    f"{label}: {spec.rid} via {fleet.placements[spec.rid]}"
+                    f" gave {out} != alone {want}")
+
+
+class GpuUtil:
+    """The card's busy share while the context is open, from
+    ``nvidia-smi``'s ``utilization.gpu`` sampled every 100 ms (the share
+    of each sample period in which a kernel ran): it sees every thread's
+    kernels and, unlike the profiler, costs the process nothing, so a
+    service fleet's heartbeats are not held up when it stops."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=10)
+        vals = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+        # the first sample can predate the window
+        self.samples = vals[1:] or vals
+        self.busy = (sum(self.samples) / len(self.samples) / 100
+                     if self.samples else None)
+
+    def line(self) -> str:
+        if self.busy is None:
+            return "device busy not measured"
+        return (f"device busy {100 * self.busy:.1f}% ({100 - 100 * self.busy:.1f}"
+                f"% idle; nvidia-smi utilization.gpu, {len(self.samples)} "
+                f"samples of 100 ms)")
+
+
+def _wait_until(pred, timeout_s, what, *, report=None, every_s=30.0):
+    t0 = time.perf_counter()
+    next_report = t0 + every_s
+    while time.perf_counter() - t0 < timeout_s:
+        if pred():
+            return
+        if report is not None and time.perf_counter() > next_report:
+            log(f"waiting for {what}, {time.perf_counter() - t0:.0f} s: "
+                f"{report()}")
+            next_report += every_s
+        time.sleep(0.005)
+    raise AssertionError(f"timed out after {timeout_s} s waiting for {what}"
+                         + (f": {report()}" if report is not None else ""))
+
+
+def late(cp) -> str:
+    """A control plane's acks that landed after their RPC expired."""
+    return (f"late acks adopted {cp.late_adopted}, duplicate copies "
+            f"cancelled {cp.duplicates} ({cp.wasted_tokens} tokens "
+            f"wasted)")
+
+
+def service_state(cp) -> str:
+    """What a service-mode fleet is doing: tickets, queue, RPCs in
+    flight, each service's loop, mailbox and rows, the bus counters."""
+    fleet = cp.fleet
+    with fleet._lock:
+        tickets = {r: (t.state.value, len(t.output),
+                       fleet.placements.get(r, []))
+                   for r, t in sorted(fleet.tickets.items())
+                   if not t.done}
+        queue = [(it.rid, "parked" if it.parked else "fresh")
+                 for it in fleet.queue.ordered()]
+        rpcs = [(i, r.msg.type, r.msg.rid, r.msg.dst, r.tries)
+                for i, r in cp._rpc.items()]
+        disp = {r: d.target for r, d in cp._dispatching.items()}
+    svcs = {}
+    for n, svc in cp.services.items():
+        eng = svc.engine
+        svcs[n] = dict(alive=svc.alive(), error=repr(svc.error),
+                       mailbox=len(svc.mailbox),
+                       healthy=fleet.handles[n].healthy,
+                       rows=sorted(r.rid for r in eng.requests.values()),
+                       free_pages=getattr(getattr(eng, "allocator", None),
+                                          "free_pages", None),
+                       last_beat=cp.detector.last_beat(n))
+    return (f"open tickets {tickets}; queue {queue}; dispatching {disp}; "
+            f"rpcs {rpcs}; services {svcs}; ctl mailbox "
+            f"{len(cp.mailbox)}; bus sent {cp.bus.sent}, failures "
+            f"{cp.bus.send_failures}, refused {cp.bus.refused}, retried "
+            f"{cp.retried}; clock {cp.fleet.clock():.2f}")
+
+
+def run_service(cfg, params):
+    """The ``service`` path: the port's ``ControlPlane`` over
+    ``SocketTransport`` with a thread per engine: three ``PagedEngine``s
+    a, b, c of the paged geometry (one program set), the twelve requests,
+    b's service killed once it holds a slot whose shadow arrived.  Then
+    the same requests without faults through a one-engine sync fleet and
+    the three-engine socket fleet: the concurrency ratio."""
+    from repro_torch.core.attestation import TrustAuthority
+    from repro_torch.core.channel import SocketTransport
+    from repro_torch.core.daemon import CLOUD
+    from repro_torch.fleet import (ControlPlane, EngineHandle, EngineService,
+                                   FleetController, Rebalancer)
+    from repro_torch.serving.paged import PagedEngine
+
+    specs = _service_traffic(cfg)
+    progs = Programs()
+
+    def fleet_of(tag, names):
+        handles = []
+        for i, n in enumerate(names):
+            eng = PagedEngine(cfg, params, seed=i, **SERVICE_GEO)
+            progs.name(eng, f"{tag}:{n}")
+            handles.append(EngineHandle(n, eng, CLOUD))
+        return FleetController(handles, authority=TrustAuthority(),
+                               balancer=Rebalancer(sync_every=8))
+
+    def tickets_conserved(fleet):
+        with fleet._lock:
+            queued = {it.rid for it in fleet.queue.ordered()}
+            for rid, t in fleet.tickets.items():
+                places = ((rid in queued) + (rid in fleet.inflight)
+                          + t.done)
+                if places != 1:
+                    raise AssertionError(f"service: {rid} in {places} "
+                                         f"places ({t.state.value})")
+
+    zero_counts()
+    torch.cuda.synchronize()
+    with progs:
+        # 1. faults: b's service dies mid-flight
+        # host seconds of each inject RPC's handler on its service thread
+        # (peek, unpack_slot, repack_slot, inject_slot, synchronised)
+        inject_s = []
+        handler = EngineService._on_inject
+
+        def timed_inject(svc, msg):
+            t = time.perf_counter()
+            out = handler(svc, msg)
+            torch.cuda.synchronize()
+            inject_s.append((msg.rid, svc.name,
+                             round(time.perf_counter() - t, 4)))
+            return out
+        EngineService._on_inject = timed_inject
+        fleet = fleet_of("faults", "abc")
+        tp = SocketTransport()
+        # the default timers: an RPC waits 0.5 s a try, 5 tries, and a
+        # service can be busy longer at full width (a 100 MB inject, a
+        # shadow pack), so an ack may land after its RPC expired
+        cp = ControlPlane(fleet, transport=tp)
+        t0 = time.perf_counter()
+        cp.start(threads=True)
+        try:
+            for s in specs:
+                if cp.submit(s) is None:
+                    raise AssertionError(f"service: {s.rid} not admitted")
+
+            def b_shadowed():
+                with fleet._lock:
+                    on_b = {r for r, (_, h, _) in fleet.inflight.items()
+                            if h == "b"}
+                    return on_b & set(fleet.balancer.shadow.get("b", {}))
+            _wait_until(b_shadowed, 240, "b to hold a shadowed slot",
+                        report=lambda: service_state(cp))
+            with fleet._lock:
+                on_b = sorted(r for r, (_, h, _) in fleet.inflight.items()
+                              if h == "b")
+                shadowed = sorted(fleet.balancer.shadow.get("b", {}))
+            t_kill = time.perf_counter() - t0
+            cp.kill_service("b")
+
+            log(f"service: b's service killed {time.perf_counter() - t0:.2f}"
+                f" s in, holding {on_b}")
+
+            def finished():
+                if not cp.thread.is_alive():
+                    raise AssertionError("service: the control thread died")
+                tickets_conserved(fleet)
+                return all(t.done for t in fleet.tickets.values())
+            _wait_until(finished, 300, "every ticket to end",
+                        report=lambda: service_state(cp))
+        finally:
+            cp.stop()
+            EngineService._on_inject = handler
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        tel = fleet.telemetry
+        lost = [ev.engine for ev in tel.heartbeat_events()]
+        if lost != ["b"]:
+            raise AssertionError(f"service: heartbeat losses {lost}")
+        _check_served("service", cfg, params, fleet, specs)
+        conserved(fleet)
+        moved = {r: fleet.placements[r] for r in on_b}
+        fails = [m for m in tel.migrations if m.reason == "failover"]
+        log(f"service: b killed {t_kill:.2f} s in, holding {on_b} "
+            f"(shadows of {shadowed}); HeartbeatLoss for b only; "
+            f"placements of b's requests {moved}; {len(fails)} exact "
+            f"re-placements from shadows ({[m.rid for m in fails]}, "
+            f"{[m.wire_bytes for m in fails]} bytes); every ticket done "
+            f"once, conserved; the greedy ones equal the same requests "
+            f"served alone on a fresh PagedEngine, bit for bit; {wall:.1f}"
+            f" s ({gpu_line()})")
+        bus = cp.bus
+        big = {k: v for k, v in bus.largest.items()
+               if k in ("shadow", "inject", "ack", "place")}
+        log(f"service: frames sent {bus.sent}, send failures "
+            f"{bus.send_failures}, dropped {tp.dropped}, refused "
+            f"{bus.refused} at the sender and {tp.refused_in} by a reader "
+            f"({tp.refusals[:2]}); largest frames by type {big} bytes "
+            f"against MAX_FRAME {tp.MAX_FRAME}; RPC retries {cp.retried}, "
+            f"{late(cp)}; inject host seconds {inject_s}")
+        if bus.refused or tp.refused_in:
+            raise AssertionError("service: a frame was refused at full "
+                                 "width")
+
+        # 2. the concurrency ratio: one engine in the sync fleet against
+        # three services over the socket transport, no faults
+        one = fleet_of("sync", "a")
+        t = time.perf_counter()
+        with GpuUtil() as u1:
+            ts = [one.submit(s) for s in specs]
+            while not all(tk.done for tk in ts):
+                one.step()
+            torch.cuda.synchronize()
+        w1 = time.perf_counter() - t
+        three = fleet_of("socket", "abc")
+        cp3 = ControlPlane(three, transport=SocketTransport())
+        cp3.start(threads=True)
+        try:
+            t = time.perf_counter()
+            with GpuUtil() as u3:
+                out3 = cp3.serve(specs, timeout_s=300.0)
+                torch.cuda.synchronize()
+            w3 = time.perf_counter() - t
+            if len(out3) != len(specs):
+                raise AssertionError(f"service: the socket fleet served "
+                                     f"{sorted(out3)}: {service_state(cp3)}")
+        finally:
+            cp3.stop()
+        for fl, label in ((one, "sync a"), (three, "socket a, b, c")):
+            _check_served(f"service ({label})", cfg, params, fl, specs)
+        toks = 32 * len(specs)
+        log(f"service: concurrency: one engine (sync FleetController) "
+            f"{toks} tokens in {w1:.2f} s = {toks / w1:.1f} tok/s, "
+            f"{u1.line()}; three engines (socket ControlPlane, a "
+            f"thread each) {toks / w3:.1f} tok/s in {w3:.2f} s, "
+            f"{u3.line()}; ratio {w1 / w3:.3f} (RPC retries "
+            f"{cp3.retried}, {late(cp3)}, heartbeat losses "
+            f"{three.telemetry.heartbeat_losses}) ({gpu_line()})")
+    counts = read_counts()
+    progs.check("service", counts)
+    log(f"service: {len(_SOLO_S)} solo references in {sum(_SOLO_S):.1f} s")
+    return counts
+
+
+def run_autoscale(cfg, params):
+    """The ``autoscale`` path: a sync ``FleetController`` over one seed
+    ``PagedEngine`` of the paged geometry with an ``Autoscaler``
+    (template of the same geometry on ``CLOUD``, pool 1-3, spawn at a
+    queue depth of 3, one warm standby, no cooldown); an idle step
+    pre-arms the standby, the twelve requests arrive at once, and once
+    the queue is empty the spawned engines retire, draining their live
+    slots.  Every scale-up there promotes a standby (the pool refills in
+    the step of each promotion), so a second fleet over the same seed
+    engine, with no standby pool (pool 1-2), takes six of the requests
+    (the second to the seventh) as a burst: its scale-up constructs an engine inline, which must
+    serve the seed's programs from the program cache."""
+    from repro_torch.core.attestation import TrustAuthority
+    from repro_torch.core.daemon import CLOUD
+    from repro_torch.fleet import (Autoscaler, EngineHandle, EngineTemplate,
+                                   FleetController, Rebalancer, ScalePolicy)
+    from repro_torch.serving.paged import PagedEngine
+
+    specs = _service_traffic(cfg)
+    progs = Programs()
+    template = EngineTemplate(name="auto", profile=CLOUD,
+                              slots=SERVICE_GEO["rows"],
+                              max_len=SERVICE_GEO["max_len"],
+                              page_size=SERVICE_GEO["page_size"],
+                              pages=SERVICE_GEO["pages"])
+    zero_counts()
+    torch.cuda.synchronize()
+    with progs:
+        seed = PagedEngine(cfg, params, seed=0, **SERVICE_GEO)
+        progs.name(seed, "seed")
+        auto = Autoscaler(
+            template,
+            ScalePolicy(min_engines=1, max_engines=3,
+                        scale_up_queue_depth=3, standby_pool=1,
+                        cooldown_s=0))
+        fleet = FleetController([EngineHandle("seed", seed, CLOUD)],
+                                authority=TrustAuthority(),
+                                balancer=Rebalancer(sync_every=8),
+                                autoscaler=auto)
+        t0 = time.perf_counter()
+        fleet.step()                        # idle: pre-arms the standby
+        torch.cuda.synchronize()
+        if len(auto.standbys) != 1:
+            raise AssertionError("autoscale: no standby after the idle "
+                                 "step")
+        sb = auto.standbys[0]
+        for s in specs:
+            fleet.submit(s)
+        first_on_spawn, drained, drain_recs, steps = None, {}, [], 0
+        dispatch = fleet._dispatch
+
+        def dispatch_then_drain():
+            # the queue empties in a dispatch pass: scale down right
+            # there, while the spawned engines still hold live slots
+            nonlocal drain_recs
+            dispatch()
+            if fleet.queue.depth() or drained or not any(
+                    fleet.handles[n].engine.requests for n in auto.spawned):
+                return
+            for name in auto.spawned:
+                drained[name] = sorted(r.rid for r in
+                                       fleet.handles[name].engine
+                                       .requests.values())
+            n0 = len(fleet.telemetry.migrations)
+            while auto.spawned:
+                auto.scale_down(fleet, reason="queue empty")
+                conserved(fleet)
+            drain_recs = fleet.telemetry.migrations[n0:]
+        fleet._dispatch = dispatch_then_drain
+        while not all(t.done for t in fleet.tickets.values()):
+            fleet.step()
+            torch.cuda.synchronize()
+            steps += 1
+            conserved(fleet)
+            for rid, hist in fleet.placements.items():
+                if first_on_spawn is None and hist[0].startswith("auto") \
+                        and fleet.tickets[rid].spec.temperature == 0.0:
+                    first_on_spawn = (rid, hist[0])
+            if steps > 2000:
+                raise AssertionError("autoscale: tickets never ended")
+        for _ in range(4):                  # parked drains re-place
+            fleet.step()
+        wall = time.perf_counter() - t0
+        _check_served("autoscale", cfg, params, fleet, specs, solo_eng=seed)
+        conserved(fleet)
+        tel = fleet.telemetry
+        evs = tel.scale_events()
+        spawns = [e for e in evs if e.action == "spawn"]
+        if auto.promotions < 1 or len(spawns) < 2 \
+                or not any(drained.values()):
+            raise AssertionError(f"autoscale: promotions "
+                                 f"{auto.promotions}, spawns {spawns}, "
+                                 f"drained {drained}")
+        if first_on_spawn is None:
+            raise AssertionError("autoscale: no greedy request ran on a "
+                                 "spawned engine")
+        spans = [sp for sp in fleet.tracer.spans if sp.name == "spawn"]
+        if len(spans) != len(spawns) or not all(
+                sp.attrs.get("cache_hit") for sp in spans):
+            raise AssertionError(f"autoscale: spawn spans "
+                                 f"{[sp.attrs for sp in spans]}")
+        drain_moves = [m for m in tel.migrations if m.reason == "drain"]
+        for rids in drained.values():
+            for rid in rids:
+                if not any(m.rid == rid for m in drain_moves):
+                    raise AssertionError(f"autoscale: {rid} drained "
+                                         "without a drain move")
+        log(f"autoscale: scale events on the audit log "
+            f"{[(e.action, e.engine, e.engines, e.reason) for e in evs]}")
+        log(f"autoscale: standby {sb.name} built in {sb.build_s:.4f} s "
+            f"(cache hit {sb.cache_hit}); spawn spans "
+            + "; ".join(f"{sp.trace_id[7:]}: construct_s "
+                        f"{sp.attrs.get('construct_s')}, promoted "
+                        f"{sp.attrs.get('promoted', False)}, "
+                        f"time_to_useful_s "
+                        f"{sp.attrs.get('time_to_useful_s')}, cache_hit "
+                        f"{sp.attrs.get('cache_hit')}" for sp in spans)
+            + f" (promotion = construct_s of a promoted spawn, "
+              f"{1e3 * min(sp.attrs['construct_s'] for sp in spans if sp.attrs.get('promoted')):.3f}"
+              f" ms) ({gpu_line()})")
+        log(f"autoscale: the first greedy request on a spawned engine "
+            f"({first_on_spawn[0]} on {first_on_spawn[1]}) and every "
+            f"greedy request equal the same request alone on an engine of"
+            f" the seed's geometry, bit for bit; drained {drained}: moves "
+            f"{[(m.rid, m.src, m.dst, m.wire_bytes) for m in drain_moves]}"
+            f" (rid, from, to, bytes) in the retire step "
+            f"{[(m.rid, m.wire_bytes) for m in drain_recs]}; conserved "
+            f"every step; {steps} steps, {wall:.1f} s")
+        construct_spawn(cfg, params, seed, template)
+    counts = read_counts()
+    progs.check("autoscale", counts)
+    return counts
+
+
+def construct_spawn(cfg, params, seed, template):
+    """The autoscale path's second fleet: ``seed`` alone, an
+    ``Autoscaler`` with no standby pool (pool 1-2, spawn at a queue depth
+    of 3, no cooldown), six requests as a burst.  The scale-up builds an
+    engine inline; it must serve the seed's programs from the program
+    cache, the greedy requests bit for bit, and retire once idle."""
+    from repro_torch.core.attestation import TrustAuthority
+    from repro_torch.core.daemon import CLOUD
+    from repro_torch.fleet import (Autoscaler, EngineHandle, FleetController,
+                                   Rebalancer, ScalePolicy)
+    burst = _service_traffic(cfg)[1:7]    # the spawn takes every other
+    auto = Autoscaler(template, ScalePolicy(
+        min_engines=1, max_engines=2, scale_up_queue_depth=3,
+        standby_pool=0, cooldown_s=0))
+    fleet = FleetController([EngineHandle("seed", seed, CLOUD)],
+                            authority=TrustAuthority(),
+                            balancer=Rebalancer(sync_every=8),
+                            autoscaler=auto)
+    t0 = time.perf_counter()
+    for s in burst:
+        fleet.submit(s)
+    steps, on_spawn = 0, []
+    while not all(t.done for t in fleet.tickets.values()):
+        fleet.step()
+        torch.cuda.synchronize()
+        steps += 1
+        conserved(fleet)
+        if steps > 2000:
+            raise AssertionError("autoscale (construct): tickets never "
+                                 "ended")
+    wall = time.perf_counter() - t0
+    for rid, hist in fleet.placements.items():
+        if hist[0].startswith("auto") \
+                and fleet.tickets[rid].spec.temperature == 0.0:
+            on_spawn.append((rid, hist[0]))
+    for _ in range(4):                      # idle: the spawn retires
+        fleet.step()
+    _check_served("autoscale (construct)", cfg, params, fleet, burst,
+                  solo_eng=seed)
+    conserved(fleet)
+    evs = fleet.telemetry.scale_events()
+    spans = [sp for sp in fleet.tracer.spans if sp.name == "spawn"]
+    if auto.promotions or len(spans) != 1 or spans[0].attrs.get("promoted") \
+            or not spans[0].attrs.get("cache_hit") or not on_spawn \
+            or auto.spawned or [e.action for e in evs] != ["spawn",
+                                                           "retire"]:
+        raise AssertionError(f"autoscale (construct): placements "
+                             f"{fleet.placements}, promotions "
+                             f"{auto.promotions}, spans "
+                             f"{[sp.attrs for sp in spans]}, greedy on the "
+                             f"spawn {on_spawn}, events "
+                             f"{[(e.action, e.engine) for e in evs]}")
+    attrs = spans[0].attrs
+    log(f"autoscale: a spawn by construction (no standby pool): "
+        f"{evs[0].engine} built inline in construct_s {attrs['construct_s']} "
+        f"s, cache_hit {attrs['cache_hit']}, time_to_useful_s "
+        f"{attrs.get('time_to_useful_s')}; scale events "
+        f"{[(e.action, e.engine, e.reason) for e in evs]}; greedy "
+        f"{on_spawn} on it and every greedy request of the burst equal "
+        f"the same request alone, bit for bit; conserved every step; "
+        f"{steps} steps, {wall:.1f} s ({gpu_line()})")
+
+
+def run_cli():
+    """The ``cli`` path: both CLIs in-process through ``main([...])`` at
+    full width on the card (their own weights, seed 0)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import fleet as fleet_cli
+    from repro_torch.launch import serve as serve_cli
+    progs = Programs()
+    zero_counts()
+    torch.cuda.synchronize()
+    # each summary line must count every request's 16 tokens
+    runs = [("serve", serve_cli, ["--requests", "4", "--slots", "4",
+                                  "--max-len", "2048", "--max-new", "16"],
+             "64 tokens in "),
+            ("fleet", fleet_cli, ["--requests", "9", "--engines",
+                                  "a:cloud:2048,b:cloud:2048,c:edge:2048",
+                                  "--transport", "socket", "--max-new",
+                                  "16"], "service mode: 9 requests, 144 "
+                                         "tokens in ")]
+    with progs:
+        for name, cli, argv, want in runs:
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                code = cli.main(argv)
+            wall = time.perf_counter() - t
+            out = buf.getvalue().splitlines()
+            summary = [ln for ln in out if want in ln]
+            if code != 0 or not summary:
+                raise AssertionError(f"cli {name}: exit {code}, last lines "
+                                     f"{out[-5:]}")
+            lines = [ln for ln in out if ln.startswith("r")]
+            log(f"cli: {name} {' '.join(argv)}: exit {code} in {wall:.1f} "
+                f"s; {len(lines)} request lines, e.g. {lines[0][:100]!r}; "
+                f"{summary[-1]} ({gpu_line()})")
+    counts = read_counts()
+    progs.check("cli", counts)
+    return counts
+
+
 def _rwkv_snapshot(eng, slots):
     return [{k: a[:, slots].clone() for k, a in layer["rwkv"].items()}
             for grp in eng.state.caches for layer in grp]
@@ -2709,9 +3355,9 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     zero_counts()
-    rows = [check_flash(fa, gen), check_paged(da, gen),
-            check_decode(da, gen), check_spec(sv, gen),
-            check_rwkv6(rs, gen), check_int8(im, gen)]
+    rows = [
+        check_flash(fa, gen), check_paged(da, gen), check_decode(da, gen),
+        check_spec(sv, gen), check_rwkv6(rs, gen), check_int8(im, gen)]
     phase = read_counts()
     log(f"kernels: phase done in {time.perf_counter() - t0:.1f} s")
 
@@ -2742,6 +3388,7 @@ def main() -> int:
     drive("migrate", run_migrate, cfg, params)
     drive("prefix", run_prefix, cfg, params)
     t0 = time.perf_counter()
+    from repro_torch.optim.compression import int8_round_trip
     lite = int8_round_trip(params)
     mini_cfg = mini_config(cfg)
     mini = init_params(mini_cfg, torch.Generator("cuda").manual_seed(9),
@@ -2752,7 +3399,12 @@ def main() -> int:
         f"B params, seed 9) built in {time.perf_counter() - t0:.2f} s")
     drive("fleet", run_fleet, cfg, params, lite, mini_cfg, mini)
     drive("replicate", run_replicate, cfg, params, lite, mini_cfg, mini)
-    del params, draft, lite, mini
+    del draft, lite, mini
+    torch.cuda.empty_cache()
+    drive("service", run_service, cfg, params)
+    drive("autoscale", run_autoscale, cfg, params)
+    drive("cli", run_cli)
+    del params
     torch.cuda.empty_cache()
     rcfg = get("rwkv6-7b")
     t0 = time.perf_counter()

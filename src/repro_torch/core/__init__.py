@@ -4,6 +4,7 @@ copy of the JAX package's ``core``).
 workspace    -- the migratable agent state (KV/SSM caches, tokens, rng)
 attestation  -- measurements, Merkle trees, quotes, capability vectors
 channel      -- simulated network fabric + attested TLS-style sessions
+                + the service mode's message transports
 migration    -- checkpoint/compress/encrypt/transfer/restore
 replication  -- multi-tier replicas, vector clocks, failover
 speculation  -- token-level spec decoding + request-level fast/slow merge
@@ -22,8 +23,9 @@ _EXPORTS = {
     "attestation": ("Attester", "AttestationError", "MerkleTree", "Quote",
                     "TrustAuthority", "capabilities", "measure_config",
                     "semantic_attest"),
-    "channel": ("AttestedSession", "Channel", "Fabric", "NetworkCondition",
-                "SimClock"),
+    "channel": ("AttestedSession", "Channel", "Fabric", "FrameTooLarge",
+                "InProcTransport", "NetworkCondition", "SimClock",
+                "SocketTransport", "Transport"),
     "daemon": ("CLOUD", "EDGE", "MCU", "DeviceProfile", "PlacementDecision",
                "PrivacyAwareDaemon", "placement_allowed"),
     "migration": ("MigrationReport", "Migrator", "Snapshot", "criu_restore",

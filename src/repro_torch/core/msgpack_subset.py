@@ -183,6 +183,56 @@ def _map(r: _Reader, n: int) -> dict:
     return out
 
 
+def _skip(r: _Reader):
+    """Step over one object without building it: str and bin bodies are
+    passed by, not copied."""
+    c = r.unpack(_B)
+    if c < 0x80 or c >= 0xE0 or c in (0xC0, 0xC2, 0xC3):
+        return
+    if 0xA0 <= c < 0xC0:
+        r.take(c & 0x1F)
+    elif 0x90 <= c < 0xA0:
+        for _ in range(c & 0x0F):
+            _skip(r)
+    elif 0x80 <= c < 0x90:
+        for _ in range(2 * (c & 0x0F)):
+            _skip(r)
+    elif c in _FIXED:
+        r.take(_FIXED[c].size)
+    elif c in _STR:
+        r.take(r.unpack(_STR[c]))
+    elif c in _BIN:
+        r.take(r.unpack(_BIN[c]))
+    elif c in _ARRAY:
+        for _ in range(r.unpack(_ARRAY[c])):
+            _skip(r)
+    elif c in _MAP:
+        for _ in range(2 * r.unpack(_MAP[c])):
+            _skip(r)
+    else:
+        raise ValueError(f"msgpack type byte 0x{c:02x} is outside the "
+                         "subset this codec reads")
+
+
+def unpack_key(data, key: str) -> object:
+    """``unpackb(data)[key]`` for data that encodes a map, reading only
+    that value: the others are stepped over, so a slot blob's header
+    costs its own bytes and not its 100 MB payload's."""
+    r = _Reader(data)
+    c = r.unpack(_B)
+    if 0x80 <= c < 0x90:
+        n = c & 0x0F
+    elif c in _MAP:
+        n = r.unpack(_MAP[c])
+    else:
+        raise ValueError(f"msgpack type byte 0x{c:02x} is not a map")
+    for _ in range(n):
+        if _read(r) == key:
+            return _read(r)
+        _skip(r)
+    raise KeyError(key)
+
+
 def unpackb(data) -> object:
     """The object ``data`` encodes (str keys, bytes values, lists)."""
     r = _Reader(data)

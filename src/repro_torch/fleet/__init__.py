@@ -1,6 +1,6 @@
 """Fleet orchestration over the port's engines: N heterogeneous Engine /
 PagedEngine replicas, one request stream (the cluster-level layer over
-the pairwise MVVM primitives), in sync mode.
+the pairwise MVVM primitives).
 
 lifecycle   -- the request-lifecycle API: immutable RequestSpec
                (priority, deadline) in, RequestTicket out -- a typed
@@ -28,8 +28,23 @@ speculative -- draft/verify tier pairs: draft on an edge engine, slot
                via migration.repack_slot), verification on a cloud
                engine with rejected suffixes bounced back
 
-The JAX package's service mode (``service``, ``bus``) and its
-``autoscaler`` are not ported yet (ROADMAP Queue 1).
+service     -- the control-plane/service split: ControlPlane owns
+               membership, tickets, admission and routing while each
+               engine runs inside an EngineService pulling work from a
+               per-engine mailbox on its own thread; placement,
+               migration and heartbeats travel as messages over a
+               pluggable bus transport
+bus         -- the message layer under service mode: msgpack-framed
+               Message envelopes (byte for byte the JAX package's),
+               per-engine Mailboxes, MessageBus over a core.channel
+               Transport, receiver-side DedupCache and the heartbeat
+               FailureDetector (typed HeartbeatLoss events)
+autoscaler  -- elastic pool membership: per-tier EngineTemplate pools +
+               ScalePolicy drive spawn at the tier the backlog needs and
+               drain-then-retire (scaling is migration), typed
+               ScaleEvents on the unified audit log, and a warm-standby
+               pool promoted on scale-up and prefix-prewarmed from a
+               same-tier donor
 
 Quality tiers (core.replication.QualityTier) are a first-class routing
 dimension: engines carry a tier (distinct weights -- full bf16, int8,
@@ -43,6 +58,9 @@ draft tier still commits target-distributed output.
 """
 
 from repro_torch.core.replication import FULL_TIER, QualityTier
+from repro_torch.fleet.autoscaler import (Autoscaler, EngineTemplate,
+                                          ScaleEvent, ScalePolicy,
+                                          ScaleSignals)
 from repro_torch.fleet.balancer import Rebalancer
 from repro_torch.fleet.cluster import EngineHandle, FleetController
 from repro_torch.fleet.lifecycle import (DeadlineExpired, LifecycleError,
@@ -50,7 +68,11 @@ from repro_torch.fleet.lifecycle import (DeadlineExpired, LifecycleError,
                                          RequestFailed, RequestSpec,
                                          RequestState, RequestTicket,
                                          TERMINAL_STATES)
+from repro_torch.fleet.bus import (DedupCache,  # noqa: F401
+                                   FailureDetector, HeartbeatLoss, Mailbox,
+                                   Message, MessageBus)
 from repro_torch.fleet.router import RouteDecision, Router
+from repro_torch.fleet.service import ControlPlane, EngineService
 from repro_torch.fleet.speculative import (SpecTierStats,
                                            SpeculativeTierController)
 from repro_torch.fleet.telemetry import (FleetTelemetry, MigrationRecord,
@@ -68,10 +90,13 @@ from repro_torch.fleet.tracing import (Counter, Gauge,  # noqa: F401
                                        WindowedHistogram)
 
 __all__ = [
-    "DeadlineExpired", "EngineHandle", "FULL_TIER", "FleetController",
-    "FleetTelemetry", "LifecycleError", "LifecycleEvent",
+    "Autoscaler", "ControlPlane", "DeadlineExpired", "EngineHandle",
+    "EngineService", "EngineTemplate", "FULL_TIER", "FailureDetector",
+    "FleetController", "FleetTelemetry", "HeartbeatLoss",
+    "LifecycleError", "LifecycleEvent", "Message", "MessageBus",
     "MigrationRecord", "QualityEvent", "QualityTier", "Rebalancer",
     "RequestCancelled", "RequestFailed", "RequestSpec", "RequestState",
-    "RequestTicket", "RouteDecision", "Router", "SpecTierStats",
+    "RequestTicket", "RouteDecision", "Router", "ScaleEvent",
+    "ScalePolicy", "ScaleSignals", "SpecTierStats",
     "SpeculativeTierController", "TERMINAL_STATES", "Tracer",
 ]

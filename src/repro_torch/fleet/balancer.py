@@ -34,7 +34,7 @@ import numpy as np
 from repro_torch import compression
 from repro_torch.core.channel import AttestedSession
 from repro_torch.core.migration import pack_slot, repack_slot, unpack_slot
-from repro_torch.core.msgpack_subset import packb, unpackb
+from repro_torch.core.msgpack_subset import packb, unpack_key, unpackb
 from repro_torch.fleet.lifecycle import RequestState
 from repro_torch.fleet.telemetry import MigrationRecord
 from repro_torch.kernels.ops import check_domain
@@ -67,17 +67,28 @@ def check_reprefill(engine, req, committed):
             f"refused: {e}") from None
 
 
+def room_for(handle, need: int) -> bool:
+    """Can ``handle`` take a moved slot that reserves ``need`` tokens
+    (prompt + max_new) right now?  The router is asked with the slot's
+    remaining decode tokens, which a paged engine's free pages may hold
+    while the row's whole reservation does not; the JAX package routes
+    on that alone and its ``inject_slot`` then raises (ROADMAP Queue 3)."""
+    return handle.engine.admissible(need) and handle.engine.can_admit(need)
+
+
 def peek_slot_meta(blob: bytes) -> dict:
     """Request metadata of a packed slot without deserializing arrays
-    (routing needs sensitivity/remaining-work before a target exists)."""
-    return unpackb(blob)["meta"]["request"]
+    (routing needs sensitivity/remaining-work before a target exists).
+    The payload is stepped over, not copied: the control plane peeks
+    every parked blob on every dispatch pass."""
+    return unpack_key(blob, "meta")["request"]
 
 
 def peek_slot_header(blob: bytes) -> dict:
     """Full pack_slot meta (request + wire version + page_size + trace)
     without deserializing arrays -- placement needs the wire version to
     decide exact-inject vs lossy re-prefill before touching payload."""
-    return unpackb(blob)["meta"]
+    return unpack_key(blob, "meta")
 
 
 def wire_compatible(hdr: dict, engine) -> bool:
@@ -208,7 +219,7 @@ class Rebalancer:
         remaining = meta["max_new_tokens"] - len(meta["output"])
         need = len(meta["prompt"]) + meta["max_new_tokens"]
         dec = fleet.router.route(
-            [h for h in handles if h.engine.admissible(need)], fleet.cfg,
+            [h for h in handles if room_for(h, need)], fleet.cfg,
             sensitivity=meta["sensitivity"],
             prefill_tokens=0, decode_tokens=remaining,
             deadline_slack=deadline_slack,
@@ -429,8 +440,9 @@ class Rebalancer:
         src_tier = getattr(src, "tier", None)
         for slot, req in sorted(src.engine.requests.items()):
             remaining = req.max_new_tokens - len(req.output)
+            need = len(req.prompt) + req.max_new_tokens
             dec = fleet.router.route(
-                [h for h in others if self.fits(req, h)], fleet.cfg,
+                [h for h in others if room_for(h, need)], fleet.cfg,
                 sensitivity=req.sensitivity,
                 prefill_tokens=0,
                 decode_tokens=remaining,

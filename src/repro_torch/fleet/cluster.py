@@ -23,10 +23,10 @@ fleet-level stable point: between two controller steps every request is
 either queued (no device state), parked/shadow-checkpointed, or
 complete.
 
-The port's copy of the JAX package's ``fleet.cluster``, in sync mode:
-the controller steps every engine on the caller's thread.  Service mode
-and the autoscaler are not ported yet; ``autoscaler=`` takes any object
-with their duck-typed surface.  A fresh prompt, or a parked slot's
+The port's copy of the JAX package's ``fleet.cluster``: in sync mode the
+controller steps every engine on the caller's thread; in service mode
+(``fleet.service.ControlPlane``) each engine runs in its own service
+and the controller keeps the state.  A fresh prompt, or a parked slot's
 re-prefill, outside an engine's prefill domain fails its ticket with the
 engine's reason instead of raising out of ``step()``, and a fresh request
 an engine refuses after its ``can_admit`` accepted it stays queued

@@ -97,6 +97,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib if lib is not None else build_all((name,))[name]
 
 
+_launch_lock = threading.Lock()
+
+
+def count_launch(fn, route: str | None = None) -> None:
+    """Add one to ``fn.launches`` (and to ``fn.routes[route]``) under one
+    lock.  ``+=`` on an attribute is a read, an add and a write, which
+    two threads can interleave and lose a count: in the fleet's service
+    mode every engine launches kernels from its own thread."""
+    with _launch_lock:
+        fn.launches += 1
+        if route is not None:
+            fn.routes[route] += 1
+
+
 def on_device(t):
     """The context to launch a kernel on ``t``'s card in: none when that
     card is already current (the wrapper's per-call host cost)."""

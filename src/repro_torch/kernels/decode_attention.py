@@ -120,7 +120,7 @@ def decode_attention(q, k_cache, v_cache, abs_pos, positions, *, window=0,
                  int(window), float(softcap), float(D ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
-    decode_attention.launches += 1
+    build.count_launch(decode_attention)
     return o
 
 
@@ -236,7 +236,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *,
     if err != 0:
         raise RuntimeError(
             f"paged_decode_attention launch failed: cudaError {err}")
-    paged_decode_attention.launches += 1
+    build.count_launch(paged_decode_attention)
     return o
 
 

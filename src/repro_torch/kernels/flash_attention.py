@@ -82,7 +82,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}"
                            + (" (tensor map refused)" if err == -2 else ""))
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return o
 
 

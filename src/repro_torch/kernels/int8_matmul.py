@@ -133,8 +133,7 @@ def int8_matmul(x, w_q, w_scale):
         if err != 0:
             raise RuntimeError(f"int8_matmul launch failed ({r} route): "
                                f"cudaError {err}")
-        int8_matmul.launches += 1
-        int8_matmul.routes[r] += 1
+        build.count_launch(int8_matmul, r)
     return out.reshape(*x.shape[:-1], N)
 
 

@@ -131,7 +131,7 @@ def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
         what = {-1: "shape refused", -2: "tensor map not encoded"}.get(
             err, f"cudaError {err}")
         raise RuntimeError(f"rwkv6_scan launch failed (split {dv}): {what}")
-    rwkv6_scan.launches += 1
+    build.count_launch(rwkv6_scan)
     return out, stateT
 
 

@@ -110,7 +110,7 @@ def spec_accept(draft_tokens, draft_probs, target_probs, u):
                     err, f"cudaError {err}")
         raise RuntimeError(f"spec_accept launch failed (cluster of {C} "
                            f"CTAs of {threads} threads): {what}")
-    spec_accept.launches += 1
+    build.count_launch(spec_accept)
     return n, dist
 
 

@@ -1112,3 +1112,101 @@ def test_fleet_distribution_pair_launches_spec_accept_once_a_round(cuda):
     st = fleet.spec_controllers["draft"].stats
     assert st.requests == 2 and st.rounds > 0
     assert sv.spec_accept.launches - n0 == st.rounds
+
+
+@pytest.mark.cuda
+def test_socket_fleet_kill_service_fails_over_bit_for_bit(cuda):
+    """Service mode on the card: two one-row PagedEngines behind a
+    ``ControlPlane`` over the loopback-socket transport, one service
+    thread each.  The service holding a greedy request is killed after
+    its shadow arrived; the heartbeat detector declares it failed and
+    the request resumes from the shadow (wire v2) on the other engine,
+    its tokens equal to the request served alone on a fresh engine."""
+    import time
+
+    from repro_torch.core.attestation import TrustAuthority
+    from repro_torch.core.channel import SocketTransport
+    from repro_torch.core.daemon import CLOUD
+    from repro_torch.fleet import (ControlPlane, EngineHandle,
+                                   FleetController, RequestSpec,
+                                   RequestState)
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.paged import PagedEngine
+    cfg, params = _tiny_on_card(cuda)
+    mk = lambda seed: PagedEngine(cfg, params, page_size=16, rows=1,  # noqa
+                                  max_len=128, seed=seed, device=cuda)
+    prompt = np.arange(3, 40) % 500
+    solo = mk(9)
+    ref = Request("ref", prompt, max_new_tokens=48)
+    solo.add_request(ref)
+    while solo.requests:
+        solo.step()
+    fleet = FleetController([EngineHandle("a", mk(0), CLOUD),
+                             EngineHandle("b", mk(1), CLOUD)],
+                            authority=TrustAuthority())
+    cp = ControlPlane(fleet, transport=SocketTransport(), sync_every=4,
+                      hb_timeout_s=1.0)
+    cp.start(threads=True)
+    try:
+        t = cp.submit(RequestSpec(rid="r", prompt=prompt,
+                                  max_new_tokens=48))
+        deadline = time.perf_counter() + 120.0
+        while time.perf_counter() < deadline and not any(
+                fleet.balancer.shadow.values()):
+            time.sleep(0.005)
+        src = fleet.placement_of("r")
+        assert src is not None and fleet.balancer.shadow.get(src)
+        cp.kill_service(src)
+        while time.perf_counter() < deadline and not t.done:
+            time.sleep(0.01)
+        assert t.state is RequestState.DONE
+        assert t.output == ref.output
+        other = "b" if src == "a" else "a"
+        assert fleet.placements["r"] == [src, other]
+        assert [ev.engine for ev in fleet.telemetry.heartbeat_events()] \
+            == [src]
+        (rec,) = fleet.telemetry.migrations
+        assert rec.reason == "failover" and not rec.lossy
+    finally:
+        cp.stop()
+
+
+@pytest.mark.cuda
+def test_autoscaler_spawn_shares_its_donors_programs(cuda):
+    """A paged template of the seed engine's geometry spawns, on the
+    card, an engine served the seed engine's program set
+    (``program_cache_hit``, the spawn span's ``cache_hit``), and a
+    greedy request on it equals the same request alone on the seed
+    engine, bit for bit."""
+    from repro_torch.core.attestation import TrustAuthority
+    from repro_torch.core.daemon import CLOUD
+    from repro_torch.fleet import (Autoscaler, EngineHandle, EngineTemplate,
+                                   FleetController, ScalePolicy)
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.paged import PagedEngine
+    cfg, params = _tiny_on_card(cuda)
+    seed_eng = PagedEngine(cfg, params, page_size=16, rows=2, max_len=128,
+                           pages=16, seed=0, device=cuda)
+    fleet = FleetController(
+        [EngineHandle("base", seed_eng, CLOUD)], authority=TrustAuthority(),
+        autoscaler=Autoscaler(
+            EngineTemplate(name="auto", profile=CLOUD, slots=2, max_len=128,
+                           page_size=16, pages=16),
+            ScalePolicy(min_engines=1, max_engines=2,
+                        scale_up_queue_depth=10)))
+    ev = fleet.autoscaler.scale_up(fleet, reason="test")
+    spawned = fleet.handles[ev.engine].engine
+    assert spawned.device.type == "cuda"
+    assert spawned.program_cache_hit
+    assert spawned._programs is seed_eng._programs
+    span = next(s for s in fleet.tracer.spans if s.name == "spawn")
+    assert span.attrs["cache_hit"] is True
+    prompt = np.arange(7, 50) % 500
+    outs = []
+    for eng in (spawned, seed_eng):
+        req = Request("r", prompt, max_new_tokens=16)
+        assert eng.add_request(req)
+        while not req.done:
+            eng.step()
+        outs.append(req.output)
+    assert outs[0] == outs[1]

@@ -5,7 +5,8 @@ property, audited downshifts, lossy cross-tier hand-offs, the upshift,
 distribution-level speculation across distinct weights, preemption of a
 drafting request, and the replication manager's merge and pick_tier
 rules), on tiny llama-1.5b with the JAX package's seed-0 weights
-bridged; the ``lite`` tier is the JAX int8 round trip of them, bridged.
+bridged; the ``lite`` tier is their int8 round trip by the port's own
+``optim.compression`` (bit-equal to the JAX one).
 The parity tests run one tiered stream, and one distribution-verify
 pair, through both packages."""
 

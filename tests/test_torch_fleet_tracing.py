@@ -9,8 +9,6 @@ seed-0 weights bridged.  The parity test holds the span trees of one
 stream equal across the two packages."""
 
 import json
-from dataclasses import dataclass
-from typing import ClassVar
 
 import numpy as np
 import pytest
@@ -23,10 +21,12 @@ from repro_torch.core.attestation import TrustAuthority  # noqa: E402
 from repro_torch.core.channel import NetworkCondition, SimClock  # noqa: E402
 from repro_torch.core.daemon import CLOUD, EDGE  # noqa: E402
 from repro_torch.core.msgpack_subset import unpackb  # noqa: E402
-from repro_torch.fleet import (EngineHandle, FleetController,  # noqa: E402
+from repro_torch.fleet import (Autoscaler, EngineHandle,  # noqa: E402
+                               EngineTemplate, FleetController,
                                MetricsRegistry, MigrationRecord,
                                QualityEvent, RequestSpec, RequestState,
-                               Tracer, WindowedHistogram, percentile)
+                               ScaleEvent, ScalePolicy, Tracer,
+                               WindowedHistogram, percentile)
 from repro_torch.fleet.lifecycle import LifecycleEvent  # noqa: E402
 from repro_torch.fleet.telemetry import FleetTelemetry  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
@@ -36,19 +36,6 @@ from tests.torch_helpers import (assert_conserved, fleet_record,  # noqa: E402
 
 CFG = make_tiny(get("llama-1.5b"))
 MAX_LEN = 64
-
-
-@dataclass
-class ScaleEvent:
-    """The JAX autoscaler's membership event, which the port does not
-    have yet: telemetry and the tracer read it by its fields (``kind``,
-    ``action``, ``engine``, ``reason``, ``t``)."""
-    kind: ClassVar[str] = "scale"
-    action: str
-    engine: str
-    reason: str
-    t: float
-    engines: int = 0
 
 
 def _params():
@@ -389,24 +376,19 @@ def test_summary_contract_unchanged_and_tracing_optional():
 
 
 def test_jit_compiles_attribute_to_spawn_spans():
-    """A spawn opens an engine-lifetime span; the spawned engine's first
-    program runs attach as jit child spans and the first productive step
-    closes the spawn with its time-to-useful.  The port has no
-    autoscaler yet, so the test spawns as the JAX autoscaler does: it
-    records the spawn event, then registers the engine."""
+    """An autoscaler spawn opens an engine-lifetime span; the spawned
+    engine's first program runs attach as jit child spans and the
+    first productive step closes the spawn with its time-to-useful."""
     fleet = FleetController(
         [EngineHandle("base", mk_engine(seed=0, slots=1), EDGE)],
-        authority=TrustAuthority())
+        authority=TrustAuthority(),
+        autoscaler=Autoscaler(
+            EngineTemplate(name="auto", profile=EDGE, slots=1,
+                           max_len=MAX_LEN, seed=100),
+            ScalePolicy(min_engines=1, max_engines=2,
+                        scale_up_queue_depth=2, cooldown_s=0.0)))
     ts = [fleet.submit(RequestSpec(prompt=np.arange(4), rid=f"r{i}",
                                    max_new_tokens=6)) for i in range(4)]
-    fleet.step()
-    fleet.telemetry.record_scale(ScaleEvent(
-        action="spawn", engine="auto0", reason="queue depth 3",
-        t=fleet.clock(), engines=2))
-    # a geometry no earlier engine ran: its first runs are real
-    fleet.add_engine(EngineHandle(
-        "auto0", mk_engine(seed=100, slots=1, max_len=MAX_LEN + 16), EDGE))
-    fleet.tracer.annotate_spawn("auto0", construct_s=0.0)
     while not all(t.done for t in ts):
         fleet.step()
     spawned = [ev.engine for ev in fleet.telemetry.scale_events()

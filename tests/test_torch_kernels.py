@@ -813,3 +813,45 @@ def test_ops_dispatch_cpu_to_plain_and_domain():
                            fa.plain(q, k, k, causal=True))
     finally:
         ops.set_backend(None)
+
+
+def test_launch_counts_exact_under_threads():
+    """Every wrapper counts its launches through ``build.count_launch``,
+    one lock for all: eight threads counting at once (as engine
+    services launch from their own threads) lose no count, on a stub
+    and on int8_matmul's per-route table."""
+    import os
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+
+    def stub():
+        pass
+    stub.launches = 0
+    stub.routes = {"a": 0, "b": 0}
+    n, threads = 5_000, 2 * ((os.cpu_count() or 4) // 2 + 2)
+    barrier = threading.Barrier(threads)
+
+    def count(i):
+        barrier.wait()
+        for _ in range(n):
+            build.count_launch(stub, "ab"[i % 2])
+    ts = [threading.Thread(target=count, args=(i,)) for i in range(threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)          # switch threads as often as it can
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in ts)
+    assert stub.launches == n * threads
+    assert stub.routes == {"a": n * threads // 2, "b": n * threads // 2}
+    # each wrapper's source counts through the lock, not ``+= 1``
+    for mod in (fa, da, sv, rs, im):
+        src = pathlib.Path(mod.__file__).read_text()
+        assert "launches += 1" not in src, mod.__name__
+        assert "build.count_launch(" in src, mod.__name__

@@ -15,7 +15,8 @@ from repro import compression as jcompression  # noqa: E402
 from repro.core import crypto as jcrypto  # noqa: E402
 from repro_torch import compression  # noqa: E402
 from repro_torch.core import crypto  # noqa: E402
-from repro_torch.core.msgpack_subset import packb, unpackb  # noqa: E402
+from repro_torch.core.msgpack_subset import (packb,  # noqa: E402
+                                             unpack_key, unpackb)
 
 LENGTHS = (0, 1, 15, 16, 31, 32, 255, 256, 65535, 65536)
 INTS = (0, 1, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32,
@@ -50,6 +51,24 @@ def test_packb_is_byte_identical_to_msgpack(value):
 def test_unpackb_reads_what_msgpack_reads(value):
     blob = msgpack.packb(value)
     assert unpackb(blob) == msgpack.unpackb(blob)
+
+
+@pytest.mark.parametrize("value", VALUES)
+def test_unpack_key_steps_over_every_other_value(value):
+    """``unpack_key`` reads one value of a map and steps over the
+    others (whatever their type) to reach it."""
+    blob = msgpack.packb({"before": value, "meta": {"v": value},
+                          "after": [value, {"k": value}]})
+    assert unpack_key(blob, "meta") == msgpack.unpackb(blob)["meta"]
+    assert unpack_key(blob, "after") == unpackb(blob)["after"]
+    assert unpack_key(blob, "before") == msgpack.unpackb(blob)["before"]
+
+
+def test_unpack_key_refuses_a_missing_key_and_a_non_map():
+    with pytest.raises(KeyError):
+        unpack_key(msgpack.packb({"a": 1}), "meta")
+    with pytest.raises(ValueError, match="not a map"):
+        unpack_key(msgpack.packb([1, 2]), "meta")
 
 
 def test_unpackb_refuses_truncated_and_trailing_bytes():

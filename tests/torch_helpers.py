@@ -84,9 +84,11 @@ def assert_conserved(fleet):
                 == len(eng.free_slots) * eng.max_len, (name,)
 
 
-def int8_round_trip(jparams):
-    """The lite tier's weights: the JAX per-tensor symmetric int8 round
-    trip of every floating leaf (as ``tests/test_fleet_quality.py``)."""
+def jax_int8_round_trip(jparams):
+    """The lite tier's weights on the JAX side: the JAX per-tensor
+    symmetric int8 round trip of every floating leaf (as
+    ``tests/test_fleet_quality.py``).  The port's side is
+    ``repro_torch.optim.compression.int8_round_trip``."""
     from repro.optim.compression import dequantize_int8, quantize_int8
 
     def f(w):
@@ -102,10 +104,11 @@ _FLEET_WEIGHTS = {}
 
 def fleet_weights(dtype="bfloat16"):
     """The fleet tests' three tiers on both packages: the tiny llama's
-    seed-0 weights (``full``), their int8 round trip (``lite``) and a
-    half-depth config from seed 9 (``mini``).  Returns ``{side: {tier:
-    (cfg, params)}}`` with side ``"jax"`` or ``"torch"``; the torch
-    params are the JAX ones bridged."""
+    seed-0 weights (``full``), their int8 round trip (``lite``, by each
+    package's own quantizer) and a half-depth config from seed 9
+    (``mini``).  Returns ``{side: {tier: (cfg, params)}}`` with side
+    ``"jax"`` or ``"torch"``; the torch ``full`` and ``mini`` params are
+    the JAX ones bridged."""
     if dtype in _FLEET_WEIGHTS:
         return _FLEET_WEIGHTS[dtype]
     from repro.models.init import init_params
@@ -115,13 +118,17 @@ def fleet_weights(dtype="bfloat16"):
     jsm = jcfg.replace(name=jcfg.name + "-sm", blocks=jcfg.blocks[:half])
     tsm = tcfg.replace(name=tcfg.name + "-sm", blocks=tcfg.blocks[:half])
     jfull = init_params(jcfg, jax.random.key(0))
-    jlite = int8_round_trip(jfull)
+    from repro_torch.optim.compression import int8_round_trip
+    jlite = jax_int8_round_trip(jfull)
     jmini = init_params(jsm, jax.random.key(9))
     bridge = lambda p: params_from_numpy(to_numpy(p), device="cpu")  # noqa
+    tfull = bridge(jfull)
+    # each package's own quantizer: bit-equal leaf for leaf
+    # (tests/test_torch_fleet_autoscale.py holds them so)
     out = {"jax": {"full": (jcfg, jfull), "lite": (jcfg, jlite),
                    "mini": (jsm, jmini)},
-           "torch": {"full": (tcfg, bridge(jfull)),
-                     "lite": (tcfg, bridge(jlite)),
+           "torch": {"full": (tcfg, tfull),
+                     "lite": (tcfg, int8_round_trip(tfull)),
                      "mini": (tsm, bridge(jmini))}}
     _FLEET_WEIGHTS[dtype] = out
     return out
