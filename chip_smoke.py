@@ -18,7 +18,11 @@ the result line):
                design its shape routes to); times by CUDA events over
                calls queued behind a sleep kernel, and for flash, paged
                and dense decode, rwkv6_scan, int8_matmul and their
-               library yardsticks also the profiler's device time
+               library yardsticks also the profiler's device time;
+               flash, paged and dense decode also at the families' head
+               dims 160 and 256 (gemma3-4b's local layer and ring
+               buffer, stablelm-12b's layer), each case in its kernel's
+               row of the JSON line under "cases"
   4. paths   : each path driven with every launch count set to 0 just
                before it and read just after; llama-1.5b at full width
                (bf16, random weights from seeds 0 and 1):
@@ -117,12 +121,27 @@ the result line):
                             one slot moved after 8 decode steps into a
                             second engine (seed 9) with the unmigrated
                             run's tokens
+               then the six other attention-only families at full width
+               and depth (bf16, seed 0; one at a time, rwkv freed):
+               families     gemma3-4b, gemma2-27b, stablelm-12b,
+                            deepseek-7b, granite-moe-1b-a400m and
+                            deepseek-moe-16b, each on a ``PagedEngine``
+                            and a dense ``Engine`` (four requests, the
+                            longest past the local window); one decode
+                            step with every layer's attention held to its
+                            plain version on the layer's own inputs, and
+                            its logits against the plain versions (an MoE
+                            model's plain run replays the kernel run's
+                            routes); launches exactly num_layers x
+                            prefills and decode forwards; gemma3-4b's
+                            slot hops, paged and dense, bit for bit
   5. the kernels' JSON line, the card line, and the result line
 
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -339,6 +358,71 @@ def check_flash(fa, gen) -> dict:
         log(line)
     row["max_abs_err"] = worst
     return row
+
+
+def band_pairs(S: int, window: int) -> int:
+    """(query, key) pairs of causal attention over S tokens, within
+    ``window`` keys of the query when there is one."""
+    if not window:
+        return S * (S + 1) // 2
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def wide_flash(fa, gen) -> list:
+    """flash at the families' wide head dims, causal over S = 1536:
+    gemma3-4b's local layer (H 8 / KV 4, D 256, window 1024) and
+    stablelm-12b's layer (H 32 / KV 8, D 160); each against its plain
+    version within ``BF16_TOL``, bit-equal on a second call, and timed
+    beside the plain version, SDPA (a band mask for the window) and the
+    bound."""
+    B, S = 1, 1536
+    out = []
+    for label, H, KV, D, window in (("gemma3-4b local", 8, 4, 256, 1024),
+                                    ("stablelm-12b", 32, 8, 160, 0)):
+        kw = dict(causal=True, window=window)
+        q, k, v = (torch.randn((B, S, n, D), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for n in (H, KV, KV))
+        o = fa.flash_attention(q, k, v, **kw)
+        ref = fa.plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(o, ref)
+        if not torch.isfinite(o).all() or err > BF16_TOL:
+            raise AssertionError(f"flash {label} D={D}: max_abs_err {err} "
+                                 f"> {BF16_TOL}")
+        if not torch.equal(o, fa.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash {label}: a second call gave "
+                                 "other bits")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        plain_ms = time_ms(lambda: fa.plain(q, k, v, **kw), iters=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        i = torch.arange(S, device="cuda")
+        band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+
+        def sdpa():
+            if window:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, enable_gqa=True)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        lib_err = max_err(sdpa().transpose(1, 2), ref)
+        if lib_err > BF16_TOL:
+            raise AssertionError(f"flash {label} yardstick: SDPA is "
+                                 f"{lib_err} from plain")
+        lib_ms = time_ms(sdpa)
+        flops = 4 * B * H * D * band_pairs(S, window)
+        nbytes = 2 * B * S * D * (2 * H + 2 * KV)
+        bms, by = bound(flops, nbytes)
+        log(f"flash {label} S={S} H={H} KV={KV} D={D} {kw}: max_abs_err="
+            f"{err:.3e} (tol {BF16_TOL}), bit-equal on a second call | "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f}"
+            f" ms, bound {bms:.4f} ms ({by}), {flops / ms / 1e9:.1f} "
+            f"TFLOP/s")
+        out.append(dict(case=label, S=S, H=H, KV=KV, D=D, window=window,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+    return out
 
 
 def _pools(P, ps, KV, D, gen):
@@ -622,6 +706,151 @@ def check_decode(da, gen) -> dict:
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, device_ms=dev,
                 library_device_ms=lib_dev)
+
+
+def _live(pos, window: int) -> list[int]:
+    """Each row's valid slots at its position (within the window)."""
+    return [min(int(p) + 1, window) if window else int(p) + 1
+            for p in pos]
+
+
+def wide_paged(da, gen) -> list:
+    """paged decode at the families' wide head dims, B = 4 rows near
+    positions 1000-1500 over 16-slot pages: gemma3-4b (G 2, D 256)
+    windowed (1024) and global, stablelm-12b (G 4, D 160); each row
+    within its limit against the plain version, bit-equal on a second
+    call, and timed (pools rotated, cold in L2) beside the plain version,
+    SDPA over pre-gathered K/V and the bound."""
+    B, ps, NP, P = 4, 16, 128, 512
+    rng = np.random.default_rng(SEED + 24)
+    pos = torch.tensor([1000, 1200, 1350, 1500], dtype=torch.int32,
+                       device="cuda")
+    out = []
+    for label, H, KV, D, window in (("gemma3-4b local", 8, 4, 256, 1024),
+                                    ("gemma3-4b global", 8, 4, 256, 0),
+                                    ("stablelm-12b", 32, 8, 160, 0)):
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        pools = [tuple(_pools(P, ps, KV, D, gen)) for _ in range(4)]
+        pt = torch.from_numpy(np.stack([rng.permutation(P)[:NP]
+                                        for _ in range(B)]).astype(
+                                            np.int32)).cuda()
+        o = da.paged_decode_attention(q, *pools[0], pt, pos, window=window)
+        ref = da.paged_plain(q, *pools[0], pt, pos, window=window)
+        err, frac = row_err(o, ref, slice(0, B))
+        if not torch.isfinite(o).all() or frac > 1.0:
+            raise AssertionError(f"paged {label} D={D}: max_abs_err {err} "
+                                 f"at {frac:.2f} x its row's limit")
+        if not torch.equal(o, da.paged_decode_attention(
+                q, *pools[0], pt, pos, window=window)):
+            raise AssertionError(f"paged {label}: a second call gave "
+                                 "other bits")
+        it = iter(range(1 << 30))
+
+        def kern():
+            kp, vp = pools[next(it) % len(pools)]
+            da.paged_decode_attention(q, kp, vp, pt, pos, window=window)
+
+        ms = time_ms(kern, iters=40)
+        plain_ms = time_ms(lambda: da.paged_plain(
+            q, *pools[0], pt, pos, window=window), iters=10)
+        S = (int(pos.max()) // ps + 1) * ps
+        ids = pt[:, :S // ps].long()
+        dense = [tuple(x[ids].reshape(B, S, KV, D).transpose(1, 2)
+                       .contiguous() for x in pl) for pl in pools]
+        qt = q.transpose(1, 2).contiguous()
+        j = torch.arange(S, device="cuda")[None]
+        ok = j <= pos[:, None]
+        if window:
+            ok &= j > pos[:, None] - window
+        mask = ok[:, None, None, :]
+        lib_it = iter(range(1 << 30))
+
+        def sdpa():
+            kt, vt = dense[next(lib_it) % len(dense)]
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        lib_err = max_err(torch.nn.functional.scaled_dot_product_attention(
+            qt, *dense[0], attn_mask=mask, enable_gqa=True).transpose(1, 2),
+            ref)
+        if lib_err > BF16_TOL:
+            raise AssertionError(f"paged {label} yardstick: SDPA is "
+                                 f"{lib_err} from plain")
+        lib_ms = time_ms(sdpa, iters=40)
+        valid = sum(_live(pos.tolist(), window))
+        nbytes = (2 * valid * KV * D * 2 + 2 * B * H * D * 2
+                  + pt.numel() * 4 + B * 4)
+        flops = 4 * H * D * valid
+        bms, by = bound(flops, nbytes)
+        log(f"paged_decode {label} B={B} H={H} KV={KV} D={D} window "
+            f"{window} positions {pos.tolist()}: max_abs_err={err:.3e} "
+            f"({frac:.2f} x its row's limit), bit-equal on a second call | "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over "
+            f"pre-gathered K/V {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
+        out.append(dict(case=label, B=B, H=H, KV=KV, D=D, window=window,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+    return out
+
+
+def wide_decode(da, gen) -> list:
+    """dense decode at gemma3-4b's local layer: a 1024-slot ring buffer
+    (window 1024), H 8 / KV 4, D 256, B = 4 rows at positions 1000-1500;
+    each row within its limit against the plain version, bit-equal on a
+    second call, timed (caches rotated) beside the plain version, SDPA
+    and the bound."""
+    B, H, KV, D, Sc = 4, 8, 4, 256, 1024
+    pos = torch.tensor([1000, 1200, 1350, 1500], dtype=torch.int32,
+                       device="cuda")
+    slot = torch.arange(Sc, device="cuda")[None]
+    p = pos[:, None] - ((pos[:, None] - slot) % Sc)
+    ap = torch.where(p >= 0, p, -1).to(torch.int32)
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    caches = [tuple(_dense_case(B, Sc, KV, D, gen)) for _ in range(4)]
+    kw = dict(window=Sc)
+    o = da.decode_attention(q, *caches[0], ap, pos, **kw)
+    ref = da.plain(q, *caches[0], ap, pos, **kw)
+    err, frac = row_err(o, ref, slice(0, B))
+    if not torch.isfinite(o).all() or frac > 1.0:
+        raise AssertionError(f"decode ring D={D}: max_abs_err {err} at "
+                             f"{frac:.2f} x its row's limit")
+    if not torch.equal(o, da.decode_attention(q, *caches[0], ap, pos, **kw)):
+        raise AssertionError("decode ring: a second call gave other bits")
+    it = iter(range(1 << 30))
+
+    def kern():
+        kc, vc = caches[next(it) % len(caches)]
+        da.decode_attention(q, kc, vc, ap, pos, **kw)
+
+    ms = time_ms(kern, iters=40)
+    plain_ms = time_ms(lambda: da.plain(q, *caches[0], ap, pos, **kw),
+                       iters=10)
+    kt, vt = (c.transpose(1, 2).contiguous() for c in caches[0])
+    qt = q.transpose(1, 2).contiguous()
+    mask = ((ap >= 0) & (ap <= pos[:, None])
+            & (ap > pos[:, None] - Sc))[:, None, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_ms = time_ms(sdpa, iters=40)
+    valid = sum(_live(pos.tolist(), Sc))
+    nbytes = (2 * valid * KV * D * 2 + B * Sc * 4 + 2 * B * H * D * 2
+              + B * 4)
+    flops = 4 * H * D * valid
+    bms, by = bound(flops, nbytes)
+    log(f"decode_attention gemma3-4b local ring B={B} Sc={Sc} H={H} "
+        f"KV={KV} D={D} positions {pos.tolist()}: max_abs_err={err:.3e} "
+        f"({frac:.2f} x its row's limit), bit-equal on a second call | "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+        f"ms, bound {bms:.4f} ms ({by}), {nbytes / ms / 1e6:.1f} GB/s")
+    return [dict(case="gemma3-4b local ring", B=B, H=H, KV=KV, D=D,
+                 window=Sc, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by=by, library_ms=lib_ms)]
 
 
 def _spec_case(kind, g, V, gen):
@@ -3323,6 +3552,325 @@ def run_rwkv(cfg, params) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the families path: the six other attention-only configs at full width
+# ---------------------------------------------------------------------------
+
+# (config, longest prompt): the longest passes the local window where
+# there is one; gemma3-4b first, at full depth with its slot hops
+FAMILIES = (("gemma3-4b", 1536), ("gemma2-27b", 4608),
+            ("stablelm-12b", 1536), ("deepseek-7b", 1536),
+            ("granite-moe-1b-a400m", 1536), ("deepseek-moe-16b", 1536))
+
+
+class DecodeAttentionPatch:
+    """Within the block, ``ops.paged_decode_attention`` and
+    ``ops.decode_attention`` (what every decode layer calls) go through
+    ``self.call(name, orig, *args, **kw)``; restored on exit."""
+
+    NAMES = ("paged_decode_attention", "decode_attention")
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.orig = {n: getattr(ops, n) for n in self.NAMES}
+        for n, fn in self.orig.items():
+            setattr(ops, n, lambda *a, n=n, fn=fn, **kw: self.call(
+                n, fn, *a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.ops, n, fn)
+
+
+class Shadowed(DecodeAttentionPatch):
+    """Every decode attention call (the kernels on the card) is also run
+    through its plain version on the same inputs: every layer of a
+    full-depth model checked on its own inputs, so the chaos a deep
+    random model makes of one-ulp differences neither hides nor fakes a
+    fault.  Each output element is held to 4 bf16 ulps (4 x 2^-7,
+    relative) of sum_i p_i |v_i|, the plain version run on |V|: the
+    magnitude of the terms it sums.  Its own value is no yardstick here:
+    where the probabilities spread over V rows of both signs the sum
+    cancels, and the kernel's p, rounded against its run's max, and the
+    plain version's, rounded after normalising (each as its reference
+    rounds it), differ by an ulp of the terms, not of the sum
+    (deepseek-7b's paged probe on an H100 80GB HBM3: 6.25 x ``row_tol``).
+    A dead row must be exactly 0.  ``calls`` and ``worst`` (error over
+    limit) are kept."""
+
+    calls, worst = 0, 0.0
+
+    def call(self, name, orig, q, k, v, *args, **kw):
+        from repro_torch.kernels import decode_attention as da
+        plain = da.plain if name == "decode_attention" else (
+            lambda q, k, v, pt, pos, page_size, **kw:
+            da.paged_plain(q, k, v, pt, pos, **kw))
+        out = orig(q, k, v, *args, **kw)
+        ref = plain(q, k, v, *args, **kw).float()
+        terms = plain(q, k, v.abs(), *args, **kw).float()
+        frac = float(((out.float() - ref).abs()
+                      / (4 * 2.0 ** -7 * terms).clamp(min=1e-30)).max())
+        self.calls += 1
+        self.worst = max(self.worst, frac)
+        if not torch.isfinite(out).all() or frac > 1.0:
+            raise AssertionError(f"{name} in the model: {frac:.2f} x its "
+                                 "limit against the plain version")
+        return out
+
+
+class RouteReplay:
+    """The MoE router's decisions of the first forward (kernels),
+    replayed in every later one (plain versions), so that a one-ulp
+    difference in an attention output cannot flip a top-k choice between
+    the runs: routing is a step function of its input, and a flipped
+    expert moves a random model's logits by O(1).  Wraps ``fn``."""
+
+    def __init__(self, fn):
+        from repro_torch.models import moe
+        self.moe, self.fn, self.rec, self.at = moe, fn, None, 0
+
+    def _route(self, p, x, spec):
+        if self.recording:
+            out = self.orig(p, x, spec)
+            self.rec.append(out)
+            return out
+        out = self.rec[self.at]
+        self.at += 1
+        return out
+
+    def __call__(self):
+        self.recording = self.rec is None
+        if self.recording:
+            self.rec = []
+        self.at = 0
+        self.orig = self.moe._router
+        self.moe._router = self._route
+        try:
+            return self.fn()
+        finally:
+            self.moe._router = self.orig
+
+
+class Nudged(DecodeAttentionPatch):
+    """Within the block (plain versions on: ``ops.set_backend("ref")``),
+    every decode attention output is moved by one bf16 ulp, up or down by
+    a seeded coin: the model's own sensitivity to the rounding the
+    kernels and the plain versions differ by."""
+
+    def __init__(self, seed=SEED):
+        self.gen = torch.Generator("cuda").manual_seed(seed)
+
+    def call(self, name, orig, *args, **kw):
+        out = orig(*args, **kw)
+        up = torch.rand(out.shape, generator=self.gen,
+                        device=out.device) < 0.5
+        inf = torch.full_like(out, float("inf"))
+        return torch.nextafter(out, torch.where(up, inf, -inf))
+
+
+def compare_deep(label: str, fn):
+    """``compare_logits`` for the families' deep random models: the
+    kernels' logits against the plain versions', within the larger of
+    ``LOGIT_REL_TOL`` x max |logit| and twice what one bf16 ulp on every
+    decode attention output moves the plain run's logits (``Nudged``).
+    Thirty to forty-six layers of random weights amplify one-ulp
+    differences past llama-1.5b's 0.1 (on an H100 80GB HBM3: deepseek-7b's
+    paged probe 0.33 of 4.03; granite-moe-1b-a400m's 0.33 of 0.61, its
+    tied embeddings keeping the logits small, with the routes replayed);
+    the layer check (``Shadowed``) holds each kernel call itself."""
+    from repro_torch.kernels import ops
+    out_k = fn()
+    ops.set_backend("ref")
+    try:
+        out_r = fn()
+        with Nudged():
+            out_n = fn()
+    finally:
+        ops.set_backend(None)
+    compared, own = max_err(out_k, out_r), max_err(out_n, out_r)
+    scale = float(out_r.abs().max())
+    limit = max(LOGIT_REL_TOL * scale, 2 * own)
+    agree = float((out_k.argmax(-1) == out_r.argmax(-1)).float().mean())
+    if not torch.isfinite(out_k).all() or compared > limit:
+        raise AssertionError(f"{label}: decode logits kernel vs plain: "
+                             f"{compared} > {limit} (max |logit| {scale}, "
+                             f"one-ulp nudge {own})")
+    log(f"{label}: one decode step's logits, kernels vs plain versions: "
+        f"max_abs_err={compared:.3e}, max |logit| {scale:.3f}, one-ulp "
+        f"nudge of every attention output moves the plain logits "
+        f"{own:.3e} (limit max({LOGIT_REL_TOL} x max |logit|, 2 x nudge) "
+        f"= {limit:.3e}), argmax agreement {agree:.2f}")
+
+
+def family_engine(cfg, params, kind, tally, long) -> tuple:
+    """Four requests (37, 512, 1024 and ``long`` prompt tokens, 32 new
+    each, greedy and sampled alternating) on a ``PagedEngine(rows=4,
+    page_size=16)`` or a dense ``Engine(slots=4)``: 8 steps, one decode
+    step's logits against the plain versions, 4 profiled steps, then to
+    the end.  Returns (decode step wall ms, busy ms, prefill s)."""
+    from repro_torch.serving import paged
+    from repro_torch.serving.engine import Engine
+    max_len = -(-(long + 32) // 16) * 16
+    if kind == "paged":
+        eng = paged.PagedEngine(cfg, params, rows=4, page_size=16,
+                                max_len=max_len, seed=SEED, device="cuda")
+    else:
+        eng = Engine(cfg, params, slots=4, max_len=max_len, seed=SEED,
+                     device="cuda")
+    reqs = _requests(cfg, (37, 512, 1024, long),
+                     np.random.default_rng(SEED + 30), kind[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tally.add(eng, *reqs)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    for _ in range(8):
+        tally.step(eng)
+    label = f"families {cfg.name} {kind}"
+    if kind == "paged":
+        def probe():
+            return decode_logits(eng, paged)
+    else:
+        def probe():
+            return dense_logits(eng)
+    with Shadowed() as shadow:
+        probe()
+    log(f"{label}: every layer's decode attention held to its plain "
+        f"version on the layer's own inputs: {shadow.calls} calls, worst "
+        f"element at {shadow.worst:.3f} x its limit (4 bf16 ulps of "
+        f"sum p|v|)")
+    # one decode step end to end; an MoE model's plain runs take the
+    # kernel run's routes (RouteReplay)
+    compare_deep(label, RouteReplay(probe) if cfg.moe else probe)
+    if kind == "paged":
+        tally.probes += 2        # the shadowed probe and compare_deep's
+    else:
+        tally.steps["dense"] += 2
+    wall, busy = profiled(lambda: [tally.step(eng) for _ in range(4)],
+                          f"{label} decode step (4 rows)", 4)
+    tally.drain(eng)
+    _check_outputs(cfg, reqs)
+    if kind == "paged":
+        eng.check()
+        if eng.allocator.free_pages != eng.pages:
+            raise AssertionError(f"{label}: pages held after the last "
+                                 "retire")
+    return wall, busy, prefill_s
+
+
+def family_hops(cfg, params, tally):
+    """gemma3-4b's slot hops after 8 steps: paged (v2, live pages) and
+    dense (v1: its local leaves are 1024-slot ring buffers, its global
+    ones 2048 slots), each into a second engine of seed 9 that serves
+    another request; both resume with the unmigrated runs' tokens bit
+    for bit (``hop_pair``)."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.paged import PagedEngine
+    geo = dict(rows=4, page_size=16, max_len=2048, device="cuda")
+
+    def paged_landed(src, dst, moved, pos, snap):
+        src.check()
+        dst.check()
+
+    hop_pair(lambda seed: PagedEngine(cfg, params, seed=seed, **geo), cfg,
+             tally, f"families {cfg.name} paged hop", paged_landed)
+    log(f"families {cfg.name} paged hop: m0 (1024 prompt tokens, sampled) "
+        f"moved after 8 steps into PagedEngine(seed 9) beside a 200-token "
+        f"request: 32 tokens equal the unmigrated run's bit for bit; m1, "
+        f"m2 and d0 equal their runs without the hop")
+    rings = {}
+
+    def dense_landed(src, dst, moved, pos, snap):
+        if moved.slot != 2 or snap.version != 1:
+            raise AssertionError(f"dense hop: v{snap.version} landed in "
+                                 f"slot {moved.slot}, not 2")
+        for block, grp in zip(cfg.blocks, snap.arrays.caches):
+            for ls, layer in zip(block.layers, grp):
+                rings[ls.mixer] = layer["attn"]["k"].shape[1]
+        window = max(ls.window for ls in cfg.layer_specs())
+        if rings != {"local": min(window, 2048), "attn": 2048}:
+            raise AssertionError(f"dense hop: cache slots {rings}")
+
+    hop_pair(lambda seed: Engine(cfg, params, seed=seed, slots=4,
+                                 max_len=2048, device="cuda"),
+             cfg, tally, f"families {cfg.name} dense hop", dense_landed,
+             into=2)
+    log(f"families {cfg.name} dense hop: m0 moved from slot 0 to slot 2 "
+        f"of Engine(seed 9) after 8 steps with its local layers' "
+        f"{rings['local']}-slot ring buffers (global {rings['attn']} "
+        f"slots): 32 tokens equal the unmigrated run's bit for bit; m1, m2 "
+        f"and d0 equal their runs without the hop")
+
+
+def release():
+    """Free what the last engines held before the next allocates: an
+    engine's cycles (its allocator's auditors, its programs' closures)
+    wait for the collector, and the caching allocator keeps freed blocks
+    until emptied; gemma2-27b's 56.8 GB of weights need the room."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_families() -> dict:
+    """The six attention-only families at full width and depth, weights
+    from seed 0 made on the card, one at a time: each on the paged and
+    the dense engine (``family_engine``), its launches exactly
+    num_layers x cold prefills (flash) and num_layers x decode forwards;
+    gemma3-4b also hops a slot on both engines (``family_hops``)."""
+    from repro_torch.configs import get
+    from repro_torch.models.init import init_params
+    release()
+    zero_counts()
+    torch.cuda.synchronize()
+    for name, long in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get(name)
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                             device="cuda")
+        torch.cuda.synchronize()
+        G = cfg.num_heads // cfg.num_kv_heads
+        windows = sorted({ls.window for ls in cfg.layer_specs()
+                          if ls.mixer == "local"})
+        log(f"families {name}: {cfg.param_count() / 1e9:.3f}B params "
+            f"({cfg.active_param_count() / 1e9:.3f}B active) bf16, "
+            f"{cfg.num_layers} layers in {len(cfg.blocks)} block groups, "
+            f"head dim {cfg.head_dim}, G {G}, local windows {windows}, "
+            f"softcaps {cfg.attn_softcap}/{cfg.logit_softcap}, vocab "
+            f"{cfg.padded_vocab}; initialised on the card (seed {SEED}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        before = read_counts()
+        tally = Tally(f"families {name}")
+        steps = {}
+        for kind in ("paged", "dense"):
+            steps[kind] = family_engine(cfg, params, kind, tally, long)
+            release()
+        if name == "gemma3-4b":
+            family_hops(cfg, params, tally)
+            release()
+        after = read_counts()
+        tally.check({k: after[k] - before[k] for k in after}, cfg.num_layers)
+        log(f"families {name}: launches flash_attention="
+            f"{after['flash_attention'] - before['flash_attention']} "
+            f"({cfg.num_layers} x {tally.prefills} prefills), "
+            f"paged_decode_attention="
+            f"{after['paged_decode_attention'] - before['paged_decode_attention']}"
+            f", decode_attention="
+            f"{after['decode_attention'] - before['decode_attention']} "
+            f"({cfg.num_layers} x decode forwards {tally.steps}, the paged "
+            f"ones + {tally.probes} logit probes), exactly")
+        log(f"families {name}: prompts (37, 512, 1024, {long}); decode step "
+            f"paged {steps['paged'][0]:.3f} ms wall / {steps['paged'][1]:.3f}"
+            f" ms busy, dense {steps['dense'][0]:.3f} / "
+            f"{steps['dense'][1]:.3f} ms; 4 prefills paged "
+            f"{steps['paged'][2]:.3f} s, dense {steps['dense'][2]:.3f} s; "
+            f"family wall {time.perf_counter() - t0:.1f} s ({gpu_line()})")
+        del params
+        release()
+    return read_counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3358,6 +3906,12 @@ def main() -> int:
     rows = [
         check_flash(fa, gen), check_paged(da, gen), check_decode(da, gen),
         check_spec(sv, gen), check_rwkv6(rs, gen), check_int8(im, gen)]
+    # the families' head dims 160 and 256: each case in its kernel's row
+    for row, wide in zip(rows, (wide_flash(fa, gen), wide_paged(da, gen),
+                                wide_decode(da, gen))):
+        row["cases"] = wide
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [c["max_abs_err"] for c in wide])
     phase = read_counts()
     log(f"kernels: phase done in {time.perf_counter() - t0:.1f} s")
 
@@ -3415,6 +3969,9 @@ def main() -> int:
         f"(seed {SEED}) initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s; llama-1.5b freed")
     drive("rwkv", run_rwkv, rcfg, rparams)
+    del rparams
+    torch.cuda.empty_cache()
+    drive("families", run_families)
     log(f"paths: wall seconds {wall}")
     for row in rows:
         name = row["name"]

@@ -181,5 +181,7 @@ def names() -> list[str]:
 def _load_all():
     # import every ported config module so it registers itself
     import importlib
-    for mod in ("llama_1p5b", "rwkv6_7b"):
+    for mod in ("llama_1p5b", "rwkv6_7b", "gemma2_27b", "gemma3_4b",
+                "stablelm_12b", "deepseek_7b", "granite_moe_1b",
+                "deepseek_moe_16b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -43,6 +43,10 @@
 // shuffles at bf16 D=128).  Every sum runs in a fixed order and there are
 // no atomics: the kernel is deterministic, and row b's output depends only
 // on row b's inputs and Sc.
+// Head dims 160 (stablelm-12b) and 256 (gemma3-4b), bf16 and f32: a slot
+// row of more than 16 vectors takes a whole warp (Lanes), one or two
+// vectors a lane, and the rows' loads come in batches; the per-warp
+// partial acc moves to dynamic shared memory (64 KB at D = 256, G = 8).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,14 +92,39 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f) {
 // GP: the group size rounded up to a power of two (the register arrays'
 // extent); G <= GP is the real one.  Scratch, per (row, kv head, chunk):
 // GP pairs (m, l), GP x CHUNK scores, GP x D of acc.
+//
+// A slot row is NVEC 16-byte vectors, taken by LPS lanes (NVEC rounded up
+// to a power of two, at most 32), NV vectors a lane: at D = 64 / 128 one
+// vector a lane and SPW slots a warp load; bf16 D = 160 leaves 12 of 32
+// lanes idle (20 vectors), f32 D = 160 / 256 gives a lane two vectors.
+// NB rounds of loads are in flight at once: all NR of them up to
+// D = 128, fewer past it, where a thread's registers hold fewer rows.
 template <typename T, int D>
 struct Lanes {
   static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  static constexpr int LPS = D / VEC;         // lanes per slot row
+  static constexpr int NVEC = D / VEC;        // vectors per slot row
+  static constexpr int LPS = NVEC > 16   ? 32
+                             : NVEC > 8  ? 16
+                             : NVEC > 4  ? 8
+                                         : 4;  // lanes per slot row
+  static constexpr int NV = (NVEC + LPS - 1) / LPS;  // vectors per lane
   static constexpr int SPW = 32 / LPS;        // slots per warp load
   static constexpr int SPR = NW * SPW;        // slots per CTA round
   static constexpr int NR = CHUNK / SPR;      // rounds per chunk
+  static constexpr int NB = D <= 128 ? NR : 8 / NV;  // rounds a batch
+  static_assert(NVEC * VEC == D && NR % NB == 0, "head dim");
 };
+
+// This lane's vector nv of a slot row: its first element, and whether
+// the row has it (false only on the idle lanes of a ragged row).
+template <typename L>
+__device__ __forceinline__ int vec_elem(int li, int nv) {
+  return (li + nv * L::LPS) * L::VEC;
+}
+template <typename L>
+__device__ __forceinline__ bool has_vec(int li, int nv) {
+  return L::NV * L::LPS == L::NVEC || li + nv * L::LPS < L::NVEC;
+}
 
 // Validity of this thread's slots c0 + r * SPR + in_round of the chunk
 // starting at c0 (with no window the walk stops at pos); true if any slot
@@ -123,6 +152,25 @@ __device__ __forceinline__ bool validity(bool (&ok)[NR], const int* ap_row,
   return __syncthreads_or(any);
 }
 
+// One batch of NB rounds of this thread's slot-row vectors (zeros for
+// slots that are not valid and for the idle lanes' missing vectors).
+template <typename L, typename T>
+__device__ __forceinline__ void load_rows(uint4 (&out)[L::NB][L::NV],
+                                          const T* base, const bool* ok,
+                                          int r0, int c0, int in_round,
+                                          int li, long long row_stride) {
+#pragma unroll
+  for (int r = 0; r < L::NB; ++r) {
+    const int sl = c0 + (r0 + r) * L::SPR + in_round;
+#pragma unroll
+    for (int nv = 0; nv < L::NV; ++nv)
+      out[r][nv] = ok[r0 + r] && has_vec<L>(li, nv)
+                       ? *reinterpret_cast<const uint4*>(
+                             base + sl * row_stride + vec_elem<L>(li, nv))
+                       : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
 template <typename T, int D, int GP>
 __global__ void __launch_bounds__(NW * 32)
 split_scores(const T* __restrict__ q, const T* __restrict__ k,
@@ -134,7 +182,7 @@ split_scores(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float sc[GP][CHUNK];
   const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = lane / L::LPS, e0 = (lane % L::LPS) * L::VEC;
+  const int sub = lane / L::LPS, li = lane % L::LPS;
   const int in_round = warp * L::SPW + sub;
   const int c0 = split * CHUNK;
   const long long pidx = ((long long)b * KV + kvh) * gridDim.z + split;
@@ -151,42 +199,48 @@ split_scores(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
   const long long row_stride = (long long)KV * D;   // one slot of the cache
-  const T* kb = k + (long long)b * Sc * row_stride + (long long)kvh * D + e0;
-  uint4 kv[L::NR];
+  const T* kb = k + (long long)b * Sc * row_stride + (long long)kvh * D;
+  uint4 kv[L::NB][L::NV];
+  load_rows<L>(kv, kb, ok, 0, c0, in_round, li, row_stride);
+  float qv[GP][L::NV][L::VEC];
+  const T* qb = q + ((long long)b * KV * G + (long long)kvh * G) * D;
 #pragma unroll
-  for (int r = 0; r < L::NR; ++r) {
-    const int sl = c0 + r * L::SPR + in_round;
-    kv[r] = ok[r] ? *reinterpret_cast<const uint4*>(kb + sl * row_stride)
-                  : make_uint4(0u, 0u, 0u, 0u);
-  }
-  float qv[GP][L::VEC];
-  const T* qb = q + ((long long)b * KV * G + (long long)kvh * G) * D + e0;
+  for (int g = 0; g < GP; ++g)
 #pragma unroll
-  for (int g = 0; g < GP; ++g) {
-    if (g < G) {
-      unpack<T>(*reinterpret_cast<const uint4*>(qb + g * D), qv[g]);
-    } else {
+    for (int nv = 0; nv < L::NV; ++nv) {
+      if (g < G && has_vec<L>(li, nv)) {
+        unpack<T>(*reinterpret_cast<const uint4*>(qb + g * D +
+                                                  vec_elem<L>(li, nv)),
+                  qv[g][nv]);
+      } else {
 #pragma unroll
-      for (int e = 0; e < L::VEC; ++e) qv[g][e] = 0.f;
+        for (int e = 0; e < L::VEC; ++e) qv[g][nv][e] = 0.f;
+      }
     }
-  }
-  // a dot over this lane's VEC elements, reduced over the slot's lanes
+  // a dot over this lane's vectors, reduced over the slot's lanes
 #pragma unroll
-  for (int r = 0; r < L::NR; ++r) {
-    float kf[L::VEC];
-    unpack<T>(kv[r], kf);
+  for (int r0 = 0; r0 < L::NR; r0 += L::NB) {
+    if (r0 > 0) load_rows<L>(kv, kb, ok, r0, c0, in_round, li, row_stride);
 #pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      float x = 0.f;
+    for (int r = 0; r < L::NB; ++r) {
+      float kf[L::NV][L::VEC];
 #pragma unroll
-      for (int e = 0; e < L::VEC; ++e) x += qv[g][e] * kf[e];
+      for (int nv = 0; nv < L::NV; ++nv) unpack<T>(kv[r][nv], kf[nv]);
 #pragma unroll
-      for (int o = L::LPS / 2; o > 0; o >>= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, o);
-      x *= scale;
-      if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-      if (lane % L::LPS == 0 && g < G)
-        sc[g][r * L::SPR + in_round] = ok[r] ? x : NEG_INF;
+      for (int g = 0; g < GP; ++g) {
+        float x = 0.f;
+#pragma unroll
+        for (int nv = 0; nv < L::NV; ++nv)
+#pragma unroll
+          for (int e = 0; e < L::VEC; ++e) x += qv[g][nv][e] * kf[nv][e];
+#pragma unroll
+        for (int o = L::LPS / 2; o > 0; o >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, o);
+        x *= scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        if (li == 0 && g < G)
+          sc[g][(r0 + r) * L::SPR + in_round] = ok[r0 + r] ? x : NEG_INF;
+      }
     }
   }
   __syncthreads();
@@ -230,12 +284,14 @@ split_pv(const T* __restrict__ v, const int* __restrict__ abs_pos,
   // pr: the chunk's scores, then p normalised and rounded to T
   using L = Lanes<T, D>;
   __shared__ float pr[GP][CHUNK];
-  __shared__ float red[NW][GP][D];    // per-warp partial acc
+  // [NW][GP][D]: per-warp partial acc, in dynamic shared memory (64 KB at
+  // D = 256, GP = 8: past the 48 KB of static shared memory)
+  extern __shared__ float red[];
   __shared__ float ML[GP][2];         // the row's M and L
   const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int nsplit = gridDim.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = lane / L::LPS, e0 = (lane % L::LPS) * L::VEC;
+  const int sub = lane / L::LPS, li = lane % L::LPS;
   const int in_round = warp * L::SPW + sub;
   const int c0 = split * CHUNK;
   const long long p0 = ((long long)b * KV + kvh) * nsplit;
@@ -249,14 +305,9 @@ split_pv(const T* __restrict__ v, const int* __restrict__ abs_pos,
     return;               // combine skips the chunk (l = 0)
   }
   const long long row_stride = (long long)KV * D;
-  const T* vb = v + (long long)b * Sc * row_stride + (long long)kvh * D + e0;
-  uint4 vv[L::NR];
-#pragma unroll
-  for (int r = 0; r < L::NR; ++r) {
-    const int sl = c0 + r * L::SPR + in_round;
-    vv[r] = ok[r] ? *reinterpret_cast<const uint4*>(vb + sl * row_stride)
-                  : make_uint4(0u, 0u, 0u, 0u);
-  }
+  const T* vb = v + (long long)b * Sc * row_stride + (long long)kvh * D;
+  uint4 vv[L::NB][L::NV];
+  load_rows<L>(vv, vb, ok, 0, c0, in_round, li, row_stride);
   // V is in flight; now split_scores' results are needed
   wait_for_previous();
   for (int i = threadIdx.x; i < G * CHUNK; i += NW * 32)
@@ -295,64 +346,78 @@ split_pv(const T* __restrict__ v, const int* __restrict__ abs_pos,
 
   // acc over this thread's slots, then over the warp's slot lanes, then
   // over the warps in warp order
-  float acc[GP][L::VEC];
+  float acc[GP][L::NV][L::VEC];
 #pragma unroll
   for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int e = 0; e < L::VEC; ++e) acc[g][e] = 0.f;
+    for (int nv = 0; nv < L::NV; ++nv)
 #pragma unroll
-  for (int r = 0; r < L::NR; ++r) {
-    float vf[L::VEC];
-    unpack<T>(vv[r], vf);
+      for (int e = 0; e < L::VEC; ++e) acc[g][nv][e] = 0.f;
 #pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      const float p = g < G ? pr[g][r * L::SPR + in_round] : 0.f;
+  for (int r0 = 0; r0 < L::NR; r0 += L::NB) {
+    if (r0 > 0) load_rows<L>(vv, vb, ok, r0, c0, in_round, li, row_stride);
 #pragma unroll
-      for (int e = 0; e < L::VEC; ++e) acc[g][e] += p * vf[e];
+    for (int r = 0; r < L::NB; ++r) {
+      float vf[L::NV][L::VEC];
+#pragma unroll
+      for (int nv = 0; nv < L::NV; ++nv) unpack<T>(vv[r][nv], vf[nv]);
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        const float p = g < G ? pr[g][(r0 + r) * L::SPR + in_round] : 0.f;
+#pragma unroll
+        for (int nv = 0; nv < L::NV; ++nv)
+#pragma unroll
+          for (int e = 0; e < L::VEC; ++e) acc[g][nv][e] += p * vf[nv][e];
+      }
     }
   }
 #pragma unroll
   for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int e = 0; e < L::VEC; ++e) {
+    for (int nv = 0; nv < L::NV; ++nv)
 #pragma unroll
-      for (int o = L::LPS; o < 32; o <<= 1)
-        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-      if (sub == 0 && g < G) red[warp][g][e0 + e] = acc[g][e];
-    }
+      for (int e = 0; e < L::VEC; ++e) {
+#pragma unroll
+        for (int o = L::LPS; o < 32; o <<= 1)
+          acc[g][nv][e] += __shfl_xor_sync(0xffffffffu, acc[g][nv][e], o);
+        if (sub == 0 && g < G && has_vec<L>(li, nv))
+          red[(warp * GP + g) * D + vec_elem<L>(li, nv) + e] = acc[g][nv][e];
+      }
   __syncthreads();
   float* out = part_acc + pidx * GP * D;
   for (int i = threadIdx.x; i < G * D; i += NW * 32) {
     const int g = i / D, d = i % D;
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) a += red[w][g][d];
+    for (int w = 0; w < NW; ++w) a += red[(w * GP + g) * D + d];
     out[g * D + d] = a;
   }
 }
 
-// One thread per (query head of the group, element): the chunks' acc
-// summed in chunk order.
+// One thread per (query head of the group, element), a block of at most
+// 1024 threads looping over them: the chunks' acc summed in chunk order.
 template <typename T, int GP>
 __global__ void combine(const float* __restrict__ part_ml,
                         const float* __restrict__ part_acc, T* __restrict__ o,
                         int KV, int G, int D, int nsplit) {
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int g = threadIdx.x / D, d = threadIdx.x % D;
   wait_for_previous();
-  if (g >= G) return;
   const long long p0 = ((long long)b * KV + kvh) * nsplit;
-  float A = 0.f;
-  // both loads unconditional (an empty chunk's acc is never written, and
-  // is selected away), so the loads of several chunks are in flight
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D, d = i % D;
+    float A = 0.f;
+    // both loads unconditional (an empty chunk's acc is never written, and
+    // is selected away), so the loads of several chunks are in flight
 #pragma unroll 8
-  for (int ci = 0; ci < nsplit; ++ci) {
-    const float l = part_ml[((p0 + ci) * GP + g) * 2 + 1];
-    const float a = part_acc[((p0 + ci) * GP + g) * D + d];
-    A += l > 0.f ? a : 0.f;
+    for (int ci = 0; ci < nsplit; ++ci) {
+      const float l = part_ml[((p0 + ci) * GP + g) * 2 + 1];
+      const float a = part_acc[((p0 + ci) * GP + g) * D + d];
+      A += l > 0.f ? a : 0.f;
+    }
+    // a row with no valid slot sums nothing: exactly 0
+    o[((long long)b * KV * G + (long long)kvh * G + g) * D + d] =
+        from_f<T>(A);
   }
-  // a row with no valid slot sums nothing: exactly 0
-  o[((long long)b * KV * G + (long long)kvh * G + g) * D + d] = from_f<T>(A);
 }
 
 template <typename T, int D, int GP>
@@ -366,6 +431,14 @@ int launch(const void* q, const void* k, const void* v, const void* ap,
   float* part_sc = part_ml + n * 2;
   float* part_acc = part_sc + n * CHUNK;
   const dim3 grid(KV, B, nsplit);
+  constexpr int RED = NW * GP * D * (int)sizeof(float);   // split_pv's red
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_pv<T, D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize, RED);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
   split_scores<T, D, GP><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const int*>(ap), static_cast<const int*>(pos), part_ml,
@@ -379,6 +452,7 @@ int launch(const void* q, const void* k, const void* v, const void* ap,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(NW * 32);
+  cfg.dynamicSmemBytes = RED;
   cfg.stream = stream;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
@@ -390,7 +464,8 @@ int launch(const void* q, const void* k, const void* v, const void* ap,
                          G, window);
   if (e != cudaSuccess) return static_cast<int>(e);
   cfg.gridDim = dim3(KV, B);
-  cfg.blockDim = dim3(GP * D);
+  cfg.blockDim = dim3(GP * D < 1024 ? GP * D : 1024);
+  cfg.dynamicSmemBytes = 0;
   e = cudaLaunchKernelEx(&cfg, combine<T, GP>,
                          static_cast<const float*>(part_ml),
                          static_cast<const float*>(part_acc),
@@ -441,6 +516,18 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   if (G < 1 || G > MAXG || Sc < 1) return -1;
+  if (dtype == 1 && D == 256)
+    return launch_g<__nv_bfloat16, 256>(q, k, v, ap, pos, o, p, B, Sc, KV, G,
+                                        window, softcap, scale, s);
+  if (dtype == 1 && D == 160)
+    return launch_g<__nv_bfloat16, 160>(q, k, v, ap, pos, o, p, B, Sc, KV, G,
+                                        window, softcap, scale, s);
+  if (dtype == 0 && D == 256)
+    return launch_g<float, 256>(q, k, v, ap, pos, o, p, B, Sc, KV, G, window,
+                                softcap, scale, s);
+  if (dtype == 0 && D == 160)
+    return launch_g<float, 160>(q, k, v, ap, pos, o, p, B, Sc, KV, G, window,
+                                softcap, scale, s);
   if (dtype == 1 && D == 128)
     return launch_g<__nv_bfloat16, 128>(q, k, v, ap, pos, o, p, B, Sc, KV, G,
                                         window, softcap, scale, s);

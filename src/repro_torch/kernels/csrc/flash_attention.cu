@@ -34,6 +34,14 @@
 //     split of a row's keys across CTAs and no atomics.
 // P is rounded to bf16 before P V, as the reference rounds it to v.dtype;
 // l sums the unrounded p.  The softmax runs in the log2 domain (ex2).
+// Head dims 160 (stablelm-12b) and 256 (gemma3-4b) run the same design
+// on a padded tile (Tile<D>): D = 160 is three 64-column boxes, the third
+// half past the row's end, which TMA fills with zeros, so Q K^T takes
+// only the ten k-steps that hold data and P V computes 32 zero columns
+// that are never stored; both take 64-key tiles (S and P in half the
+// registers, so O of 96 or 128 registers fits without spills), O is
+// issued as one n64 product per 64-column box of V, and D = 256 keeps
+// two K/V stages (Q 64 KB + 2 x 64 KB of K and V in 227 KB).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,8 +50,6 @@
 namespace {
 
 constexpr int BQ = 128;       // query rows per CTA: two warpgroups of 64
-constexpr int BK = 128;       // keys per K/V tile
-constexpr int STAGES = 3;     // K/V ring depth
 // two warpgroups; a CTA of more warps (a producer warp beside them) is
 // allocated registers for 12 warps, which caps a thread at 168 registers,
 // too few for S, O and P in flight together (spills)
@@ -170,25 +176,53 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 64, fp32) += A B, A from registers, B from shared memory
-// (MN-major: the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
+// D (64 x 64, fp32) (+)= A B, A and B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A B, A from registers, B from shared memory
+// (MN-major: the transpose bit set); D is the 32 registers of `d` from
+// index B0 on, one 64-column block of a wider accumulator
+#define ACC32(B0)                                                          \
+  "+f"(d[B0 + 0]), "+f"(d[B0 + 1]), "+f"(d[B0 + 2]), "+f"(d[B0 + 3]),       \
+      "+f"(d[B0 + 4]), "+f"(d[B0 + 5]), "+f"(d[B0 + 6]), "+f"(d[B0 + 7]),   \
+      "+f"(d[B0 + 8]), "+f"(d[B0 + 9]), "+f"(d[B0 + 10]), "+f"(d[B0 + 11]), \
+      "+f"(d[B0 + 12]), "+f"(d[B0 + 13]), "+f"(d[B0 + 14]),                 \
+      "+f"(d[B0 + 15]), "+f"(d[B0 + 16]), "+f"(d[B0 + 17]),                 \
+      "+f"(d[B0 + 18]), "+f"(d[B0 + 19]), "+f"(d[B0 + 20]),                 \
+      "+f"(d[B0 + 21]), "+f"(d[B0 + 22]), "+f"(d[B0 + 23]),                 \
+      "+f"(d[B0 + 24]), "+f"(d[B0 + 25]), "+f"(d[B0 + 26]),                 \
+      "+f"(d[B0 + 27]), "+f"(d[B0 + 28]), "+f"(d[B0 + 29]),                 \
+      "+f"(d[B0 + 30]), "+f"(d[B0 + 31])
+template <int B0, int N>
+__device__ __forceinline__ void wgmma_rs_n64_at(float (&d)[N],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  static_assert(B0 + 32 <= N, "block past the accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(B0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+#undef ACC32
 
 // D (64 x 128, fp32) += A B, A from registers, B from shared memory
 // (MN-major: the transpose bit set)
@@ -219,26 +253,46 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 
 
 // The products' widths follow the accumulators' sizes: S is 64 x BK (64
-// regs), O is 64 x D (32 regs at D = 64, 64 at D = 128).
+// regs at BK = 128, 32 at BK = 64), O is 64 x D (32 regs at D = 64, 64 at
+// D = 128; wider O is issued as 64-column blocks, wgmma_rs_n64_at).
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int scale_d) {
   wgmma_ss_n128(d, da, db, scale_d);
 }
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_n64(d, da, db, scale_d);
+}
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n64(d, a, db);
+  wgmma_rs_n64_at<0>(d, a, db);
 }
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_n128(d, a, db);
 }
 
+// The tiling of each head dim.  DP: the head dim padded to whole 64-column
+// boxes (TMA fills a box's columns past D with zeros, so Q K^T takes only
+// the D / 16 k-steps that hold data and P V writes zero columns that are
+// never stored).  D = 160 and 256 take 64-key tiles: at BK = 128 their S
+// and O accumulators with P would pass 255 registers, and at D = 256 a
+// third stage of 64 KB tiles would pass the 227 KB of shared memory.
+template <int D>
+struct Tile {
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int BK = D <= 128 ? 128 : 64;   // keys per K/V tile
+  static constexpr int STAGES = D <= 192 ? 3 : 2;  // K/V ring depth
+};
+
 // Shared memory, from a 1024-byte aligned base: Q (HALVES boxes of BQ rows),
 // then STAGES K tiles, STAGES V tiles (HALVES boxes of BK rows each), then
 // the mbarriers.  A box is rows of 64 bf16, 128-byte swizzled by TMA.
 template <int D>
 struct Smem {
-  static constexpr int HALVES = D / 64;
+  static constexpr int BK = Tile<D>::BK;
+  static constexpr int STAGES = Tile<D>::STAGES;
+  static constexpr int HALVES = Tile<D>::DP / 64;
   static constexpr int Q_BYTES = HALVES * BQ * ROW_BYTES;
   static constexpr int KV_BYTES = HALVES * BK * ROW_BYTES;
   static constexpr int Q_OFF = 0;
@@ -258,6 +312,7 @@ flash_fwd(const __grid_constant__ CUtensorMap qmap,
           __nv_bfloat16* __restrict__ o, int B, int Sq, int Skv, int H, int G,
           int causal, int window, float softcap, float scale) {
   using L = Smem<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES, DP = Tile<D>::DP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -316,7 +371,7 @@ flash_fwd(const __grid_constant__ CUtensorMap qmap,
     // ---- each warpgroup: 64 query rows -----------------------------------
     const int wg = threadIdx.x / 128;
     constexpr int SN = BK / 2;  // S accumulator: BK/8 tiles x 4
-    constexpr int ON = D / 2;   // O accumulator: D/8 tiles x 4
+    constexpr int ON = DP / 2;  // O accumulator: DP/8 tiles x 4
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     const int wq0 = q0 + wg * 64;                // this warpgroup's first row
@@ -354,15 +409,26 @@ flash_fwd(const __grid_constant__ CUtensorMap qmap,
       wgmma_commit();
     };
     // O += P V of tile i, P from registers, V MN-major (D contiguous); a
-    // key step is 16 rows
+    // key step is 16 rows.  Past D = 128, one n64 product per 64-column
+    // box of V.
     auto issue_pv = [&](int i) {
       const int st = i % STAGES;
       mbar_wait(vfull(st), (i / STAGES) & 1);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t db = make_desc(v_s(st) + kk * 16 * ROW_BYTES,
-                                      BK * ROW_BYTES, 1024);
-        wgmma_rs(acc, pa[kk], db);
+        const uint32_t vk = v_s(st) + kk * 16 * ROW_BYTES;
+        if constexpr (DP <= 128) {
+          wgmma_rs(acc, pa[kk], make_desc(vk, BK * ROW_BYTES, 1024));
+        } else {
+          constexpr uint32_t BOX = BK * ROW_BYTES;
+          wgmma_rs_n64_at<0>(acc, pa[kk], make_desc(vk, BOX, 1024));
+          wgmma_rs_n64_at<32>(acc, pa[kk], make_desc(vk + BOX, BOX, 1024));
+          wgmma_rs_n64_at<64>(acc, pa[kk],
+                              make_desc(vk + 2 * BOX, BOX, 1024));
+          if constexpr (DP == 256)
+            wgmma_rs_n64_at<96>(acc, pa[kk],
+                                make_desc(vk + 3 * BOX, BOX, 1024));
+        }
       }
       wgmma_commit();
     };
@@ -477,10 +543,12 @@ flash_fwd(const __grid_constant__ CUtensorMap qmap,
       l[i2] += __shfl_xor_sync(0xffffffffu, l[i2], 2);
       l[i2] = 1.f / fmaxf(l[i2], 1e-30f);
     }
-    // o is a fresh contiguous (B, Sq, H, D) tensor
+    // o is a fresh contiguous (B, Sq, H, D) tensor; columns past D (the
+    // padding to DP) are not stored
 #pragma unroll
     for (int d = 0; d < ON / 4; ++d) {
       const int col = d * 8 + 2 * t;
+      if (DP != D && col >= D) continue;
       if (r0 < Sq)
         *reinterpret_cast<uint32_t*>(
             o + ((long long)(b * Sq + r0) * H + h) * D + col) =
@@ -545,8 +613,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int window, float softcap, float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!encode(&qm, q, D, Sq, H, B, st, BQ) ||
-      !encode(&km, k, D, Skv, KV, B, st + 3, BK) ||
-      !encode(&vm, v, D, Skv, KV, B, st + 6, BK))
+      !encode(&km, k, D, Skv, KV, B, st + 3, Tile<D>::BK) ||
+      !encode(&vm, v, D, Skv, KV, B, st + 6, Tile<D>::BK))
     return -2;
   static bool attr = false;
   if (!attr) {
@@ -576,6 +644,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int window, float softcap, float scale,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 256)
+    return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, strides, causal,
+                       window, softcap, scale, s);
+  if (D == 160)
+    return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, strides, causal,
+                       window, softcap, scale, s);
   if (D == 128)
     return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, strides, causal,
                        window, softcap, scale, s);

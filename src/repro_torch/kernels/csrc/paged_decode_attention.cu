@@ -44,6 +44,10 @@
 // A score reduces over the lanes of its slot (4 shuffles at bf16 D=128).
 // Every sum runs in a fixed order and there are no atomics: the kernel is
 // deterministic, and row b's output depends only on row b's inputs and NP.
+// Head dims 160 (stablelm-12b) and 256 (gemma3-4b), bf16 and f32: a slot
+// row of more than 16 vectors takes a whole warp (Lanes), one or two
+// vectors a lane, and the rows' loads come in batches; the per-warp
+// partial acc moves to dynamic shared memory (64 KB at D = 256, G = 8).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,18 +90,63 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f) {
   for (int i = 0; i < 16 / (int)sizeof(T); ++i) f[i] = to_f(e[i]);
 }
 
+// A slot row is NVEC 16-byte vectors, taken by LPS lanes (NVEC rounded up
+// to a power of two, at most 32), NV vectors a lane: at D = 64 / 128 one
+// vector a lane and SPW slots a warp load; bf16 D = 160 leaves 12 of 32
+// lanes idle (20 vectors), f32 D = 160 / 256 gives a lane two vectors.
+// Up to D = 128 every K and V row of a thread is loaded before the first
+// is used; past it the rows come in batches of NB rounds (K for the
+// scores, then V for P V), so a thread's registers hold fewer rows.
 template <typename T, int D>
 struct Lanes {
   static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  static constexpr int LPS = D / VEC;         // lanes per slot row
+  static constexpr int NVEC = D / VEC;        // vectors per slot row
+  static constexpr int LPS = NVEC > 16   ? 32
+                             : NVEC > 8  ? 16
+                             : NVEC > 4  ? 8
+                                         : 4;  // lanes per slot row
+  static constexpr int NV = (NVEC + LPS - 1) / LPS;  // vectors per lane
   static constexpr int SPW = 32 / LPS;        // slots per warp load
   static constexpr int SPR = NW * SPW;        // slots per CTA round
   static constexpr int NR = SLOTS / SPR;      // rounds per CTA
+  static constexpr int NB = D <= 128 ? NR : 8 / NV;  // rounds a batch
+  static_assert(NVEC * VEC == D && NR % NB == 0, "head dim");
 };
+
+// This lane's vector nv of a slot row: its first element, and whether
+// the row has it (false only on the idle lanes of a ragged row).
+template <typename L>
+__device__ __forceinline__ int vec_elem(int li, int nv) {
+  return (li + nv * L::LPS) * L::VEC;
+}
+template <typename L>
+__device__ __forceinline__ bool has_vec(int li, int nv) {
+  return L::NV * L::LPS == L::NVEC || li + nv * L::LPS < L::NVEC;
+}
+
+// One batch of NB rounds of this thread's pool rows rr (-1: none; zeros
+// there and for the idle lanes' missing vectors).
+template <typename L, typename T>
+__device__ __forceinline__ void load_rows(uint4 (&out)[L::NB][L::NV],
+                                          const T* base, const int* rr,
+                                          int r0, int li,
+                                          long long row_stride) {
+#pragma unroll
+  for (int r = 0; r < L::NB; ++r)
+#pragma unroll
+    for (int nv = 0; nv < L::NV; ++nv)
+      out[r][nv] = rr[r0 + r] >= 0 && has_vec<L>(li, nv)
+                       ? *reinterpret_cast<const uint4*>(
+                             base + rr[r0 + r] * row_stride +
+                             vec_elem<L>(li, nv))
+                       : make_uint4(0u, 0u, 0u, 0u);
+}
 
 // GP: the group size rounded up to a power of two (the register arrays'
 // extent); G <= GP is the real one.  Scratch, per (row, kv head, split):
-// G pairs (m, l) in part_ml, G x D of acc in part_acc.
+// G pairs (m, l) in part_ml, G x D of acc in part_acc.  The per-warp
+// partial acc is NW x GP x D floats of dynamic shared memory (64 KB at
+// D = 256, GP = 8: past the 48 KB of static shared memory).
 template <typename T, int D, int GP>
 __global__ void __launch_bounds__(NW * 32)
 paged_partials(const T* __restrict__ q, const T* __restrict__ kpool,
@@ -107,12 +156,13 @@ paged_partials(const T* __restrict__ q, const T* __restrict__ kpool,
                float* __restrict__ part_acc, int NP, int ps, int pages,
                int KV, int G, int window, float softcap, float scale) {
   using L = Lanes<T, D>;
+  constexpr bool ALL = L::NB == L::NR;   // every row loaded up front
   __shared__ int rows[SLOTS];         // pool row (page * ps + s), -1: none
   __shared__ float pr[GP][SLOTS];     // scores, then p rounded to T
-  __shared__ float red[NW][GP][D];    // per-warp partial acc
+  extern __shared__ float red[];      // [NW][GP][D]: per-warp partial acc
   const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = lane / L::LPS, e0 = (lane % L::LPS) * L::VEC;
+  const int sub = lane / L::LPS, li = lane % L::LPS;
   const int in_round = warp * L::SPW + sub;
   const long long pidx = ((long long)b * KV + kvh) * gridDim.z + split;
   float* ml = part_ml + pidx * G * 2;
@@ -140,53 +190,55 @@ paged_partials(const T* __restrict__ q, const T* __restrict__ kpool,
     return;
   }
 
-  // every K and V load of this thread in flight before the first is used
   const long long row_stride = (long long)KV * D;   // one slot of a page
-  const T* kb = kpool + (long long)kvh * D + e0;
-  const T* vb = vpool + (long long)kvh * D + e0;
+  const T* kb = kpool + (long long)kvh * D;
+  const T* vb = vpool + (long long)kvh * D;
   int rr[L::NR];
-  uint4 kv[L::NR], vv[L::NR];
+  uint4 kv[L::NB][L::NV], vv[L::NB][L::NV];
 #pragma unroll
   for (int r = 0; r < L::NR; ++r) rr[r] = rows[r * L::SPR + in_round];
+  load_rows<L>(kv, kb, rr, 0, li, row_stride);
+  if (ALL) load_rows<L>(vv, vb, rr, 0, li, row_stride);
+  float qv[GP][L::NV][L::VEC];
+  const T* qb = q + ((long long)b * KV * G + (long long)kvh * G) * D;
 #pragma unroll
-  for (int r = 0; r < L::NR; ++r)
-    kv[r] = rr[r] >= 0
-                ? *reinterpret_cast<const uint4*>(kb + rr[r] * row_stride)
-                : make_uint4(0u, 0u, 0u, 0u);
+  for (int g = 0; g < GP; ++g)
 #pragma unroll
-  for (int r = 0; r < L::NR; ++r)
-    vv[r] = rr[r] >= 0
-                ? *reinterpret_cast<const uint4*>(vb + rr[r] * row_stride)
-                : make_uint4(0u, 0u, 0u, 0u);
-  float qv[GP][L::VEC];
-  const T* qb = q + ((long long)b * KV * G + (long long)kvh * G) * D + e0;
+    for (int nv = 0; nv < L::NV; ++nv) {
+      if (g < G && has_vec<L>(li, nv)) {
+        unpack<T>(*reinterpret_cast<const uint4*>(qb + g * D +
+                                                  vec_elem<L>(li, nv)),
+                  qv[g][nv]);
+      } else {
 #pragma unroll
-  for (int g = 0; g < GP; ++g) {
-    if (g < G) {
-      unpack<T>(*reinterpret_cast<const uint4*>(qb + g * D), qv[g]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < L::VEC; ++e) qv[g][e] = 0.f;
+        for (int e = 0; e < L::VEC; ++e) qv[g][nv][e] = 0.f;
+      }
     }
-  }
 
-  // a dot over this lane's VEC elements, reduced over the slot's lanes
+  // a dot over this lane's vectors, reduced over the slot's lanes
 #pragma unroll
-  for (int r = 0; r < L::NR; ++r) {
-    float kf[L::VEC];
-    unpack<T>(kv[r], kf);
+  for (int r0 = 0; r0 < L::NR; r0 += L::NB) {
+    if (r0 > 0) load_rows<L>(kv, kb, rr, r0, li, row_stride);
 #pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      float x = 0.f;
+    for (int r = 0; r < L::NB; ++r) {
+      float kf[L::NV][L::VEC];
 #pragma unroll
-      for (int e = 0; e < L::VEC; ++e) x += qv[g][e] * kf[e];
+      for (int nv = 0; nv < L::NV; ++nv) unpack<T>(kv[r][nv], kf[nv]);
 #pragma unroll
-      for (int o = L::LPS / 2; o > 0; o >>= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, o);
-      x *= scale;
-      if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-      if (lane % L::LPS == 0 && g < G)
-        pr[g][r * L::SPR + in_round] = rr[r] >= 0 ? x : NEG_INF;
+      for (int g = 0; g < GP; ++g) {
+        float x = 0.f;
+#pragma unroll
+        for (int nv = 0; nv < L::NV; ++nv)
+#pragma unroll
+          for (int e = 0; e < L::VEC; ++e) x += qv[g][nv][e] * kf[nv][e];
+#pragma unroll
+        for (int o = L::LPS / 2; o > 0; o >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, o);
+        x *= scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        if (li == 0 && g < G)
+          pr[g][(r0 + r) * L::SPR + in_round] = rr[r0 + r] >= 0 ? x : NEG_INF;
+      }
     }
   }
   __syncthreads();
@@ -224,72 +276,86 @@ paged_partials(const T* __restrict__ q, const T* __restrict__ kpool,
 
   // acc over this thread's slots, then over the warp's slot lanes, then
   // over the warps in warp order
-  float acc[GP][L::VEC];
+  float acc[GP][L::NV][L::VEC];
 #pragma unroll
   for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int e = 0; e < L::VEC; ++e) acc[g][e] = 0.f;
+    for (int nv = 0; nv < L::NV; ++nv)
 #pragma unroll
-  for (int r = 0; r < L::NR; ++r) {
-    float vf[L::VEC];
-    unpack<T>(vv[r], vf);
+      for (int e = 0; e < L::VEC; ++e) acc[g][nv][e] = 0.f;
 #pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      const float p = g < G ? pr[g][r * L::SPR + in_round] : 0.f;
+  for (int r0 = 0; r0 < L::NR; r0 += L::NB) {
+    if (!ALL) load_rows<L>(vv, vb, rr, r0, li, row_stride);
 #pragma unroll
-      for (int e = 0; e < L::VEC; ++e) acc[g][e] += p * vf[e];
+    for (int r = 0; r < L::NB; ++r) {
+      float vf[L::NV][L::VEC];
+#pragma unroll
+      for (int nv = 0; nv < L::NV; ++nv) unpack<T>(vv[r][nv], vf[nv]);
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        const float p = g < G ? pr[g][(r0 + r) * L::SPR + in_round] : 0.f;
+#pragma unroll
+        for (int nv = 0; nv < L::NV; ++nv)
+#pragma unroll
+          for (int e = 0; e < L::VEC; ++e) acc[g][nv][e] += p * vf[nv][e];
+      }
     }
   }
 #pragma unroll
   for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int e = 0; e < L::VEC; ++e) {
+    for (int nv = 0; nv < L::NV; ++nv)
 #pragma unroll
-      for (int o = L::LPS; o < 32; o <<= 1)
-        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-      if (sub == 0 && g < G) red[warp][g][e0 + e] = acc[g][e];
-    }
+      for (int e = 0; e < L::VEC; ++e) {
+#pragma unroll
+        for (int o = L::LPS; o < 32; o <<= 1)
+          acc[g][nv][e] += __shfl_xor_sync(0xffffffffu, acc[g][nv][e], o);
+        if (sub == 0 && g < G && has_vec<L>(li, nv))
+          red[(warp * GP + g) * D + vec_elem<L>(li, nv) + e] = acc[g][nv][e];
+      }
   __syncthreads();
   float* out = part_acc + pidx * G * D;
   for (int i = threadIdx.x; i < G * D; i += NW * 32) {
     const int g = i / D, d = i % D;
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) a += red[w][g][d];
+    for (int w = 0; w < NW; ++w) a += red[(w * GP + g) * D + d];
     out[i] = a;
   }
 }
 
-// One thread per (query head of the group, element): the splits merged in
-// split order.
+// One thread per (query head of the group, element), a block of at most
+// 1024 threads looping over them: the splits merged in split order.
 template <typename T>
 __global__ void paged_combine(const float* __restrict__ part_ml,
                               const float* __restrict__ part_acc,
                               T* __restrict__ o, int KV, int G, int D,
                               int splits) {
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int g = threadIdx.x / D, d = threadIdx.x % D;
   wait_for_previous();
   const long long p0 = ((long long)b * KV + kvh) * splits;
-  const float* ml = part_ml + (p0 * G + g) * 2;
-  const float* acc = part_acc + p0 * G * D + g * D + d;
-  float M = NEG_INF;
-  for (int ci = 0; ci < splits; ++ci)
-    if (ml[ci * G * 2 + 1] > 0.f) M = fmaxf(M, ml[ci * G * 2]);
-  // the loads unconditional (an empty split's acc is never written, and is
-  // selected away), so the loads of several splits are in flight
-  float Ls = 0.f, A = 0.f;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D, d = i % D;
+    const float* ml = part_ml + (p0 * G + g) * 2;
+    const float* acc = part_acc + p0 * G * D + g * D + d;
+    float M = NEG_INF;
+    for (int ci = 0; ci < splits; ++ci)
+      if (ml[ci * G * 2 + 1] > 0.f) M = fmaxf(M, ml[ci * G * 2]);
+    // the loads unconditional (an empty split's acc is never written, and
+    // is selected away), so the loads of several splits are in flight
+    float Ls = 0.f, A = 0.f;
 #pragma unroll 8
-  for (int ci = 0; ci < splits; ++ci) {
-    const float m = ml[ci * G * 2], l = ml[ci * G * 2 + 1];
-    const float a = acc[(long long)ci * G * D];
-    const float c = l > 0.f ? expf(m - M) : 0.f;
-    Ls += l > 0.f ? l * c : 0.f;
-    A += l > 0.f ? a * c : 0.f;
+    for (int ci = 0; ci < splits; ++ci) {
+      const float m = ml[ci * G * 2], l = ml[ci * G * 2 + 1];
+      const float a = acc[(long long)ci * G * D];
+      const float c = l > 0.f ? expf(m - M) : 0.f;
+      Ls += l > 0.f ? l * c : 0.f;
+      A += l > 0.f ? a * c : 0.f;
+    }
+    // a row with no live split sums nothing: 0 / 1e-30, exactly 0
+    o[((long long)b * KV * G + (long long)kvh * G + g) * D + d] =
+        from_f<T>(A / fmaxf(Ls, 1e-30f));
   }
-  // a row with no live split sums nothing: 0 / 1e-30, exactly 0
-  o[((long long)b * KV * G + (long long)kvh * G + g) * D + d] =
-      from_f<T>(A / fmaxf(Ls, 1e-30f));
 }
 
 template <typename T, int D, int GP>
@@ -300,9 +366,18 @@ int launch(const void* q, const void* kpool, const void* vpool,
   const int splits = (NP + pages - 1) / pages;
   float* part_ml = part;
   float* part_acc = part_ml + (size_t)B * KV * splits * G * 2;
+  constexpr int RED = NW * GP * D * (int)sizeof(float);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_partials<T, D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        RED);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
   cudaError_t e;
   if (splits > 0) {   // an empty table (NP = 0) leaves the combine alone: 0
-    paged_partials<T, D, GP><<<dim3(KV, B, splits), NW * 32, 0, stream>>>(
+    paged_partials<T, D, GP><<<dim3(KV, B, splits), NW * 32, RED, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kpool),
         static_cast<const T*>(vpool), static_cast<const int*>(pt),
         static_cast<const int*>(pos), part_ml, part_acc, NP, ps, pages, KV,
@@ -315,7 +390,7 @@ int launch(const void* q, const void* kpool, const void* vpool,
   pdl[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(KV, B);
-  cfg.blockDim = dim3(G * D);
+  cfg.blockDim = dim3(G * D < 1024 ? G * D : 1024);
   cfg.stream = stream;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
@@ -362,6 +437,20 @@ extern "C" int paged_decode_attention_launch(
   if (G < 1 || G > MAXG || ps < 1 || ps > 32 || NP < 0 || pages < 1 ||
       pages * ps > SLOTS)
     return -1;
+  if (dtype == 1 && D == 256)
+    return launch_g<__nv_bfloat16, 256>(q, kpool, vpool, pt, pos, o, p, B, NP,
+                                        ps, pages, KV, G, window, softcap,
+                                        scale, s);
+  if (dtype == 1 && D == 160)
+    return launch_g<__nv_bfloat16, 160>(q, kpool, vpool, pt, pos, o, p, B, NP,
+                                        ps, pages, KV, G, window, softcap,
+                                        scale, s);
+  if (dtype == 0 && D == 256)
+    return launch_g<float, 256>(q, kpool, vpool, pt, pos, o, p, B, NP, ps,
+                                pages, KV, G, window, softcap, scale, s);
+  if (dtype == 0 && D == 160)
+    return launch_g<float, 160>(q, kpool, vpool, pt, pos, o, p, B, NP, ps,
+                                pages, KV, G, window, softcap, scale, s);
   if (dtype == 1 && D == 128)
     return launch_g<__nv_bfloat16, 128>(q, kpool, vpool, pt, pos, o, p, B, NP,
                                         ps, pages, KV, G, window, softcap,

@@ -24,7 +24,7 @@ from repro_torch.kernels.ref import NEG_INF, decode_attend, paged_decode_attend
 
 NAME = "decode_attention"
 PAGED_NAME = "paged_decode_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8          # query heads per kv head the kernels take
 MAX_PAGE_SIZE = 32

@@ -17,7 +17,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import reference_attention
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160, 256)
 
 
 _fn = None

@@ -53,8 +53,8 @@ from ``--seed``, so the tokens differ from the JAX package's
 ``repro.launch.fleet``.
 
 Flags
-  --arch NAME            model config (default llama-1.5b; the port has
-                         llama-1.5b and rwkv6-7b)
+  --arch NAME            model config (default llama-1.5b; --help lists
+                         the port's configs)
   --tiny                 shrink the config (CPU-friendly smoke scale)
   --device DEV           torch device (default cuda)
   --engines SPEC         comma list of name:profile[:max_len][:tier]

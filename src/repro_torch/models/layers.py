@@ -1,6 +1,7 @@
 """Per-layer building blocks: norms, RoPE, the gated MLP, the attention
 module over dense per-row KV caches or shared KV page pools, the RWKV6
-recurrent cache, and the layer dispatcher.
+recurrent cache, and the layer dispatcher (attention with the dense MLP
+or the MoE FFN of ``models/moe.py``, or rwkv).
 
 Dense cache convention (one dict per attention layer):
   k, v     : (B, S_c, KV, Dh)   S_c = window for "local", seq budget else
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import decode_attend
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.init import torch_dtype
 
@@ -100,8 +102,16 @@ def _write_cache(cache, lspec, k, v, positions):
     the JAX engine writes every row and then masks the inactive rows'
     caches back to the old ones.  A ``torch.where`` per written slot,
     not a boolean filter, so no layer waits on the host.
+
+    A prefill longer than a local layer's ring buffer writes only its
+    last ``S_c`` tokens: the earlier ones share their slots with later
+    ones, which the JAX scatter lets win on the CPU, while a CUDA
+    ``index_put_`` with repeated indices keeps any one of them.
     """
     kc, vc, ap = cache["k"], cache["v"], cache["abs_pos"]
+    if lspec.mixer == "local" and positions.shape[1] > kc.shape[1]:
+        S_c = kc.shape[1]
+        k, v, positions = k[:, -S_c:], v[:, -S_c:], positions[:, -S_c:]
     slots = _cache_slots(lspec, kc.shape[1], positions).long()
     rows = torch.arange(kc.shape[0], device=kc.device)[:, None].expand_as(
         slots)
@@ -251,11 +261,12 @@ def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
 
 def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
                 positions, cache=None):
-    """One layer: an attention mixer + the dense gated MLP, or the rwkv
-    time mix + the rwkv channel mix.  Returns x; caches are written in
-    place."""
+    """One layer: an attention mixer + the dense gated MLP or the MoE
+    FFN, or the rwkv time mix + the rwkv channel mix.  Returns x; caches
+    are written in place.  The MoE's load-balancing loss is dropped, as
+    the engines drop it."""
     if lspec.mixer not in ("attn", "local", "rwkv") or lspec.ffn not in (
-            "dense", "none"):
+            "dense", "moe", "none"):
         raise NotImplementedError(
             f"layer {lspec} is not ported yet (ROADMAP Queue 1, other "
             "model families)")
@@ -269,6 +280,9 @@ def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
     if lspec.ffn == "dense":
         h = rmsnorm(x, p["mlp"]["ln"]["scale"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg)
+    elif lspec.ffn == "moe":
+        h = rmsnorm(x, p["moe"]["ln"]["scale"], cfg.norm_eps)
+        x = x + moe_mod.moe_apply(p["moe"], h, cfg)[0]
     return x
 
 

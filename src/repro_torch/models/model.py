@@ -76,8 +76,8 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
     {"attn": {k_pool, v_pool, page_table}} paged, or {"rwkv": {state,
     x_tm, x_cm[, write]}} recurrent, every leaf stacked over repeats);
     it is written in place, where the JAX ``forward`` returns new caches
-    (and an aux loss, always 0 for the dense and rwkv models ported so
-    far).
+    and an aux loss (the MoE layers' load-balancing loss, which the
+    engines drop, as the JAX engines do).
     """
     if cfg.encoder_blocks or cfg.num_patches or cfg.cross_attention:
         raise NotImplementedError(

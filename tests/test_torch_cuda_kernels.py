@@ -1210,3 +1210,132 @@ def test_autoscaler_spawn_shares_its_donors_programs(cuda):
             eng.step()
         outs.append(req.output)
     assert outs[0] == outs[1]
+
+
+# -- head dims 160 (stablelm-12b) and 256 (gemma3-4b) ----------------------
+
+WIDE = (160, 256)
+GROUPS = (1, 2, 4, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 129, 1024])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", WIDE)
+def test_flash_kernel_wide_head_dims(cuda, D, G, mode, S):
+    """The padded-tile instances (D = 160 in three 64-column boxes, the
+    last one past D zero-filled; D = 256 with two stages of 64-key tiles)
+    in every mode, at the edges of the 128-row query and 64-key tiles."""
+    KV = 2
+    gen = torch.Generator(cuda).manual_seed(D + G + S)
+    q, k, v = (torch.randn((2, S, n, D), generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for n in (G * KV, KV, KV))
+    kw = MODES[mode]
+    o = fa.flash_attention(q, k, v, **kw)
+    assert float((o.float() - fa.plain(q, k, v, **kw).float()).abs().max()) \
+        < 2e-2
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", WIDE)
+def test_flash_kernel_wide_strided_views_and_local_window(cuda, D):
+    """Head slices of one fused tensor read in place, and gemma3-4b's
+    local layer shape (H 8 / KV 4, window 1024) over 1536 tokens."""
+    gen = torch.Generator(cuda).manual_seed(D)
+    qkv = torch.randn((1, 1536, 16, D), generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
+    for kw in (dict(causal=True), dict(causal=True, window=1024),
+               dict(causal=True, softcap=50.0)):
+        o = fa.flash_attention(q, k, v, **kw)
+        ref = fa.plain(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+        assert float((o.float() - ref.float()).abs().max()) < 2e-2, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "window", "softcap"])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", WIDE)
+def test_paged_kernel_wide_head_dims(cuda, D, G, mode, dtype):
+    """Tables with holes and a split over several runs; each live row
+    within its limit against the plain version and the split arithmetic,
+    the dead row exactly 0, and the same bits on a second call."""
+    B, KV, ps, NP = 4, 2, 16, 20
+    P = 3 * NP + 1
+    q, kp, vp = _paged_pools(cuda, B, P, ps, KV, G * KV, D, dtype, D + G)
+    rng = np.random.default_rng(D + G)
+    pt = np.full((B, NP), -1, np.int32)
+    perm = rng.permutation(P)
+    for b in range(3):
+        pt[b] = perm[b * NP:(b + 1) * NP]
+    pt[1, 3] = -1                                     # a hole mid-row
+    pos = np.asarray([NP * ps - 1, 8 * ps, 10 * ps + 3, 40], np.int32)
+    kw = {"window": dict(window=5 * ps + 3),
+          "softcap": dict(softcap=50.0)}.get(mode, {})
+    pt_t, pos_t = torch.from_numpy(pt).to(cuda), torch.from_numpy(pos).to(cuda)
+    o = da.paged_decode_attention(q, kp, vp, pt_t, pos_t, **kw)
+    for want in (da.paged_plain(q, kp, vp, pt_t, pos_t, **kw),
+                 da.paged_split_plain(q, kp, vp, pt_t, pos_t, **kw)):
+        _hold_rows(o, want, slice(0, 3))
+    assert float(o[3].abs().max()) == 0.0
+    assert torch.equal(o, da.paged_decode_attention(q, kp, vp, pt_t, pos_t,
+                                                    **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fill", "ring", "softcap"])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", WIDE)
+def test_dense_decode_kernel_wide_head_dims(cuda, D, G, mode, dtype):
+    """Fill levels across chunk edges, a 1024-slot ring buffer (gemma3-4b's
+    local layer) and a softcap; each row within its limit against the
+    plain version and the split arithmetic, the empty row exactly 0, the
+    same bits on a second call."""
+    C, B, KV = da.CHUNK, 4, 2
+    kw = {"softcap": dict(softcap=50.0)}.get(mode, {})
+    if mode == "ring":
+        Sc, kw, pos = 1024, dict(window=1024), [1500, 1023, 200, 0]
+    else:
+        Sc, pos = 3 * C + 44, [3 * C + 43, C, C - 1, 0]
+    q, kc, vc = _decode_rows(cuda, B, Sc, KV, G * KV, D, dtype, D + G)
+    pos_t = torch.tensor(pos, device=cuda, dtype=torch.int32)
+    if mode == "ring":
+        slot = torch.arange(Sc, device=cuda)[None]
+        p = pos_t[:, None] - ((pos_t[:, None] - slot) % Sc)
+        ap = torch.where(p >= 0, p, -1).to(torch.int32)
+    else:
+        ap = _global_ap(cuda, Sc, pos_t)
+    ap[3] = -1                                        # the empty row
+    o = da.decode_attention(q, kc, vc, ap, pos_t, **kw)
+    for want in (da.plain(q, kc, vc, ap, pos_t, **kw),
+                 da.split_plain(q, kc, vc, ap, pos_t, **kw)):
+        _hold_rows(o, want, slice(0, 3))
+    assert float(o[3].abs().max()) == 0.0
+    assert torch.equal(o, da.decode_attention(q, kc, vc, ap, pos_t, **kw))
+
+
+@pytest.mark.cuda
+def test_long_prefill_into_a_ring_buffer_keeps_the_last_window(cuda):
+    """A prefill three times a local layer's ring buffer writes each slot
+    once, with its latest position: the CUDA scatter with repeated
+    indices would keep any one of the positions that share a slot."""
+    from repro_torch.configs import LayerSpec, get
+    from repro_torch.configs.tiny import make_tiny
+    from repro_torch.models import layers
+    cfg = make_tiny(get("gemma3-4b"))
+    lspec = LayerSpec("local", "dense", window=32)
+    cache = layers.make_attn_cache(cfg, lspec, 2, 256, device=cuda)
+    S = 96
+    k = torch.arange(S, device=cuda, dtype=torch.float32)[None, :, None,
+                                                          None]
+    k = k.expand(2, S, cfg.num_kv_heads, cfg.head_dim).to(torch.bfloat16)
+    pos = torch.arange(S, device=cuda)[None].expand(2, S)
+    layers._write_cache(cache, lspec, k, k, pos)
+    # S is a multiple of 32: slot s holds position S - 32 + s
+    want = torch.arange(S - 32, S, device=cuda, dtype=torch.int32)
+    assert torch.equal(cache["abs_pos"][0], want)
+    assert torch.equal(cache["k"][1, :, 0, 0].float(), want.float())

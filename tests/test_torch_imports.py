@@ -38,6 +38,13 @@ missing = sorted({{"repro_torch.core.speculation", "repro_torch.core.validation"
                   "repro_torch.kernels.int8_matmul",
                   "repro_torch.models.rwkv6",
                   "repro_torch.configs.rwkv6_7b",
+                  "repro_torch.configs.gemma2_27b",
+                  "repro_torch.configs.gemma3_4b",
+                  "repro_torch.configs.stablelm_12b",
+                  "repro_torch.configs.deepseek_7b",
+                  "repro_torch.configs.granite_moe_1b",
+                  "repro_torch.configs.deepseek_moe_16b",
+                  "repro_torch.models.moe",
                   "repro_torch.core.migration", "repro_torch.core.workspace",
                   "repro_torch.core.channel", "repro_torch.core.attestation",
                   "repro_torch.core.crypto", "repro_torch.core.msgpack_subset",
