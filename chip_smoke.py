@@ -21,8 +21,9 @@ the result line):
                library yardsticks also the profiler's device time;
                flash, paged and dense decode also at the families' head
                dims 160 and 256 (gemma3-4b's local layer and ring
-               buffer, stablelm-12b's layer), each case in its kernel's
-               row of the JSON line under "cases"
+               buffer, stablelm-12b's layer), dense decode also at
+               jamba-v0.1-52b's G 4 / D 128 rows, each case in its
+               kernel's row of the JSON line under "cases"
   4. paths   : each path driven with every launch count set to 0 just
                before it and read just after; llama-1.5b at full width
                (bf16, random weights from seeds 0 and 1):
@@ -122,7 +123,8 @@ the result line):
                             second engine (seed 9) with the unmigrated
                             run's tokens
                then the six other attention-only families at full width
-               and depth (bf16, seed 0; one at a time, rwkv freed):
+               and half depth (each block group's repeats halved, rounded
+               up; bf16, seed 0; one at a time, rwkv freed):
                families     gemma3-4b, gemma2-27b, stablelm-12b,
                             deepseek-7b, granite-moe-1b-a400m and
                             deepseek-moe-16b, each on a ``PagedEngine``
@@ -135,6 +137,25 @@ the result line):
                             routes); launches exactly num_layers x
                             prefills and decode forwards; gemma3-4b's
                             slot hops, paged and dense, bit for bit
+               then jamba-v0.1-52b at full width, depth cut to 2 of its
+               4 repeats (26.054B params: 103.1 GB of bf16 at full depth
+               does not fit the card; bf16, seed 0; every other model
+               freed):
+               jamba        ``Engine(slots=4, max_len=1568)``: four
+                            requests (37, 512, 1024, 1536 tokens), the
+                            two attention layers' kernel calls held to
+                            their plain versions and one decode step's
+                            logits against the plain versions (the MoE
+                            routes replayed); a fifth request in a
+                            retired slot from all-zero mamba state, equal
+                            to a fresh engine's, idle slots' ssm and conv
+                            untouched; a 100-token prompt refused before
+                            anything moved; profiles of a decode step and
+                            of a 1536-token prefill split into the mamba
+                            mixers and the rest; a sampled 1024-token
+                            slot's v1 hop into an engine of seed 9, bit
+                            for bit; launches exactly 2 x cold prefills
+                            (flash) and 2 x decode forwards
   5. the kernels' JSON line, the card line, and the result line
 
 """
@@ -370,16 +391,17 @@ def band_pairs(S: int, window: int) -> int:
 
 
 def wide_flash(fa, gen) -> list:
-    """flash at the families' wide head dims, causal over S = 1536:
-    gemma3-4b's local layer (H 8 / KV 4, D 256, window 1024) and
-    stablelm-12b's layer (H 32 / KV 8, D 160); each against its plain
-    version within ``BF16_TOL``, bit-equal on a second call, and timed
-    beside the plain version, SDPA (a band mask for the window) and the
-    bound."""
+    """flash at the families' and jamba's shapes, causal over S = 1536:
+    gemma3-4b's local layer (H 8 / KV 4, D 256, window 1024),
+    stablelm-12b's layer (H 32 / KV 8, D 160) and jamba's (H 32 / KV 8,
+    D 128, G 4); each against its plain version within ``BF16_TOL``,
+    bit-equal on a second call, and timed beside the plain version, SDPA
+    (a band mask for the window) and the bound."""
     B, S = 1, 1536
     out = []
     for label, H, KV, D, window in (("gemma3-4b local", 8, 4, 256, 1024),
-                                    ("stablelm-12b", 32, 8, 160, 0)):
+                                    ("stablelm-12b", 32, 8, 160, 0),
+                                    ("jamba-v0.1-52b", 32, 8, 128, 0)):
         kw = dict(causal=True, window=window)
         q, k, v = (torch.randn((B, S, n, D), generator=gen, device="cuda",
                                dtype=torch.bfloat16) for n in (H, KV, KV))
@@ -795,62 +817,85 @@ def wide_paged(da, gen) -> list:
     return out
 
 
+# dense decode cases beyond the slice's: (label, H, KV, D, Sc, window);
+# the families' and jamba's engines hold max_len 1568 rows
+DECODE_CASES = (("gemma3-4b local ring", 8, 4, 256, 1024, 1024),
+                ("stablelm-12b", 32, 8, 160, 1568, 0),
+                ("jamba-v0.1-52b", 32, 8, 128, 1568, 0))
+
+
 def wide_decode(da, gen) -> list:
-    """dense decode at gemma3-4b's local layer: a 1024-slot ring buffer
-    (window 1024), H 8 / KV 4, D 256, B = 4 rows at positions 1000-1500;
-    each row within its limit against the plain version, bit-equal on a
-    second call, timed (caches rotated) beside the plain version, SDPA
-    and the bound."""
-    B, H, KV, D, Sc = 4, 8, 4, 256, 1024
+    """dense decode at gemma3-4b's local layer (a 1024-slot ring buffer,
+    window 1024, H 8 / KV 4, D 256), at stablelm-12b's layer (H 32 / KV
+    8, D 160) and at jamba-v0.1-52b's (H 32 / KV 8, D 128: G 4), B = 4
+    rows at positions 1000-1500; each row within its limit against the
+    plain version, bit-equal on a second call, timed (caches rotated)
+    beside the plain version, SDPA and the bound."""
+    B = 4
     pos = torch.tensor([1000, 1200, 1350, 1500], dtype=torch.int32,
                        device="cuda")
-    slot = torch.arange(Sc, device="cuda")[None]
-    p = pos[:, None] - ((pos[:, None] - slot) % Sc)
-    ap = torch.where(p >= 0, p, -1).to(torch.int32)
-    q = torch.randn((B, 1, H, D), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    caches = [tuple(_dense_case(B, Sc, KV, D, gen)) for _ in range(4)]
-    kw = dict(window=Sc)
-    o = da.decode_attention(q, *caches[0], ap, pos, **kw)
-    ref = da.plain(q, *caches[0], ap, pos, **kw)
-    err, frac = row_err(o, ref, slice(0, B))
-    if not torch.isfinite(o).all() or frac > 1.0:
-        raise AssertionError(f"decode ring D={D}: max_abs_err {err} at "
-                             f"{frac:.2f} x its row's limit")
-    if not torch.equal(o, da.decode_attention(q, *caches[0], ap, pos, **kw)):
-        raise AssertionError("decode ring: a second call gave other bits")
-    it = iter(range(1 << 30))
+    out = []
+    for label, H, KV, D, Sc, window in DECODE_CASES:
+        slot = torch.arange(Sc, device="cuda")[None]
+        if window:
+            p = pos[:, None] - ((pos[:, None] - slot) % Sc)
+            ap = torch.where(p >= 0, p, -1).to(torch.int32)
+        else:
+            ap = torch.where(slot <= pos[:, None], slot, -1).to(torch.int32)
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        caches = [tuple(_dense_case(B, Sc, KV, D, gen)) for _ in range(4)]
+        kw = dict(window=window)
+        o = da.decode_attention(q, *caches[0], ap, pos, **kw)
+        ref = da.plain(q, *caches[0], ap, pos, **kw)
+        err, frac = row_err(o, ref, slice(0, B))
+        if not torch.isfinite(o).all() or frac > 1.0:
+            raise AssertionError(f"decode {label} D={D}: max_abs_err {err} "
+                                 f"at {frac:.2f} x its row's limit")
+        if not torch.equal(o, da.decode_attention(q, *caches[0], ap, pos,
+                                                  **kw)):
+            raise AssertionError(f"decode {label}: a second call gave "
+                                 "other bits")
+        it = iter(range(1 << 30))
 
-    def kern():
-        kc, vc = caches[next(it) % len(caches)]
-        da.decode_attention(q, kc, vc, ap, pos, **kw)
+        def kern():
+            kc, vc = caches[next(it) % len(caches)]
+            da.decode_attention(q, kc, vc, ap, pos, **kw)
 
-    ms = time_ms(kern, iters=40)
-    plain_ms = time_ms(lambda: da.plain(q, *caches[0], ap, pos, **kw),
-                       iters=10)
-    kt, vt = (c.transpose(1, 2).contiguous() for c in caches[0])
-    qt = q.transpose(1, 2).contiguous()
-    mask = ((ap >= 0) & (ap <= pos[:, None])
-            & (ap > pos[:, None] - Sc))[:, None, None, :]
+        ms = time_ms(kern, iters=40)
+        plain_ms = time_ms(lambda: da.plain(q, *caches[0], ap, pos, **kw),
+                           iters=10)
+        kt, vt = (c.transpose(1, 2).contiguous() for c in caches[0])
+        qt = q.transpose(1, 2).contiguous()
+        ok = (ap >= 0) & (ap <= pos[:, None])
+        if window:
+            ok &= ap > pos[:, None] - window
+        mask = ok[:, None, None, :]
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
-    lib_ms = time_ms(sdpa, iters=40)
-    valid = sum(_live(pos.tolist(), Sc))
-    nbytes = (2 * valid * KV * D * 2 + B * Sc * 4 + 2 * B * H * D * 2
-              + B * 4)
-    flops = 4 * H * D * valid
-    bms, by = bound(flops, nbytes)
-    log(f"decode_attention gemma3-4b local ring B={B} Sc={Sc} H={H} "
-        f"KV={KV} D={D} positions {pos.tolist()}: max_abs_err={err:.3e} "
-        f"({frac:.2f} x its row's limit), bit-equal on a second call | "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-        f"ms, bound {bms:.4f} ms ({by}), {nbytes / ms / 1e6:.1f} GB/s")
-    return [dict(case="gemma3-4b local ring", B=B, H=H, KV=KV, D=D,
-                 window=Sc, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=bms, bound_by=by, library_ms=lib_ms)]
+        lib_err = max_err(sdpa().transpose(1, 2), ref)
+        if lib_err > BF16_TOL:
+            raise AssertionError(f"decode {label} yardstick: SDPA is "
+                                 f"{lib_err} from plain")
+        lib_ms = time_ms(sdpa, iters=40)
+        valid = sum(_live(pos.tolist(), window))
+        nbytes = (2 * valid * KV * D * 2 + B * Sc * 4 + 2 * B * H * D * 2
+                  + B * 4)
+        flops = 4 * H * D * valid
+        bms, by = bound(flops, nbytes)
+        log(f"decode_attention {label} B={B} Sc={Sc} H={H} KV={KV} D={D} "
+            f"window {window} positions {pos.tolist()}: max_abs_err="
+            f"{err:.3e} ({frac:.2f} x its row's limit), bit-equal on a "
+            f"second call | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
+        out.append(dict(case=label, B=B, H=H, KV=KV, D=D, window=window,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+    return out
 
 
 def _spec_case(kind, g, V, gen):
@@ -1407,11 +1452,13 @@ def _check_outputs(cfg, reqs):
 
 def dense_logits(engine):
     """One decode step's logits on a copy of the engine's dense caches
-    (the engine state is left untouched)."""
+    (attention rows and recurrent state alike; the engine state is left
+    untouched)."""
     from repro_torch.models.model import forward
     from repro_torch.serving.engine import _weave_write
     s = engine.state
-    caches = [[{"attn": {k: a.clone() for k, a in layer["attn"].items()}}
+    caches = [[{kind: {k: a.clone() for k, a in c.items()}
+                for kind, c in layer.items()}
                for layer in grp] for grp in s.caches]
     with torch.no_grad():
         logits = forward(engine.params, {"tokens": s.last_token[:, None]},
@@ -1738,9 +1785,9 @@ def _hop_requests(cfg):
                     max_new_tokens=32)]
 
 
-def _resident(cfg):
+def _resident(cfg, n=200):
     from repro_torch.serving.engine import Request
-    prompt = np.random.default_rng(SEED + 8).integers(0, cfg.vocab_size, 200)
+    prompt = np.random.default_rng(SEED + 8).integers(0, cfg.vocab_size, n)
     return Request("d0", prompt, max_new_tokens=32)
 
 
@@ -1803,10 +1850,11 @@ class Tally:
                 f"{self.probes} logit probes and no other kernel: {want}")
 
 
-def hop_pair(make, cfg, tally, label, landed, *, into=None):
+def hop_pair(make, cfg, tally, label, landed, *, into=None, resident=200):
     """One request's hop between two engines of one kind beside busy
     rows, against unmigrated runs: m0 (sampled) leaves ``make(SEED)``
-    after 8 steps and finishes in ``make(9)``, which already serves d0.
+    after 8 steps and finishes in ``make(9)``, which already serves d0
+    (``resident`` prompt tokens).
     ``landed(src, dst, moved, position, snapshot)`` checks the engines
     just after the hop.  m0's tokens must equal a run without the hop,
     m1's and m2's (left in the source) that run's too, and d0's those of
@@ -1817,7 +1865,7 @@ def hop_pair(make, cfg, tally, label, landed, *, into=None):
     want = tally.drain(ref)
     del ref
     solo = make(9)
-    tally.add(solo, _resident(cfg))
+    tally.add(solo, _resident(cfg, resident))
     want.update(tally.drain(solo))
     del solo
     src = make(SEED)
@@ -1826,7 +1874,7 @@ def hop_pair(make, cfg, tally, label, landed, *, into=None):
     for _ in range(8):
         tally.step(src)
     dst = make(9)
-    tally.add(dst, _resident(cfg))
+    tally.add(dst, _resident(cfg, resident))
     pos = int(src.state.positions[reqs[0].slot])
     moved, snap = slot_hop(label, src, reqs[0].slot, dst, cfg, into=into)
     landed(src, dst, moved, pos, snap)
@@ -3326,15 +3374,15 @@ def run_cli():
     progs = Programs()
     zero_counts()
     torch.cuda.synchronize()
-    # each summary line must count every request's 16 tokens
+    # each summary line must count every request's tokens
     runs = [("serve", serve_cli, ["--requests", "4", "--slots", "4",
                                   "--max-len", "2048", "--max-new", "16"],
              "64 tokens in "),
-            ("fleet", fleet_cli, ["--requests", "9", "--engines",
+            ("fleet", fleet_cli, ["--requests", "6", "--engines",
                                   "a:cloud:2048,b:cloud:2048,c:edge:2048",
                                   "--transport", "socket", "--max-new",
-                                  "16"], "service mode: 9 requests, 144 "
-                                         "tokens in ")]
+                                  "8"], "service mode: 6 requests, 48 "
+                                        "tokens in ")]
     with progs:
         for name, cli, argv, want in runs:
             buf = io.StringIO()
@@ -3356,9 +3404,11 @@ def run_cli():
     return counts
 
 
-def _rwkv_snapshot(eng, slots):
-    return [{k: a[:, slots].clone() for k, a in layer["rwkv"].items()}
-            for grp in eng.state.caches for layer in grp]
+def _state_rows(eng, slots, kind):
+    """Copies of rows ``slots`` of every ``kind`` ("rwkv" or "mamba")
+    recurrent leaf, layer by layer."""
+    return [{k: a[:, slots].clone() for k, a in layer[kind].items()}
+            for grp in eng.state.caches for layer in grp if kind in layer]
 
 
 def _serve(eng, reqs, step_s=None):
@@ -3483,9 +3533,9 @@ def run_rwkv(cfg, params) -> dict:
     again = Request("w4", fifth, max_new_tokens=16)
     if not eng.add_request(again) or again.slot != 0:
         raise AssertionError(f"fifth request in slot {again.slot}, not 0")
-    idle = _rwkv_snapshot(eng, slice(1, 4))
+    idle = _state_rows(eng, slice(1, 4), "rwkv")
     _serve(eng, [])
-    for a, b in zip(idle, _rwkv_snapshot(eng, slice(1, 4))):
+    for a, b in zip(idle, _state_rows(eng, slice(1, 4), "rwkv")):
         for k in a:
             if not torch.equal(a[k], b[k]):
                 raise AssertionError(f"inactive slots' {k} changed across "
@@ -3557,10 +3607,25 @@ def run_rwkv(cfg, params) -> dict:
 # ---------------------------------------------------------------------------
 
 # (config, longest prompt): the longest passes the local window where
-# there is one; gemma3-4b first, at full depth with its slot hops
+# there is one; gemma3-4b first, with its slot hops
 FAMILIES = (("gemma3-4b", 1536), ("gemma2-27b", 4608),
             ("stablelm-12b", 1536), ("deepseek-7b", 1536),
             ("granite-moe-1b-a400m", 1536), ("deepseek-moe-16b", 1536))
+
+
+def family_config(name):
+    """(``name`` at full width with each block group's repeats halved,
+    rounded up, the full config): the depth cut of the ``families`` and
+    ``jamba`` paths, which keeps every layer kind, window and block
+    group.  It halves the host time of each step (chip_smoke's time
+    limit) and, for jamba, the weights: 103.1 GB of bf16 at full depth
+    does not fit the card's 80 GB."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import BlockDef
+    full = get(name)
+    return full.replace(blocks=tuple(
+        BlockDef(b.layers, repeats=-(-b.repeats // 2))
+        for b in full.blocks)), full
 
 
 class DecodeAttentionPatch:
@@ -3814,19 +3879,19 @@ def release():
 
 
 def run_families() -> dict:
-    """The six attention-only families at full width and depth, weights
-    from seed 0 made on the card, one at a time: each on the paged and
+    """The six attention-only families at full width and half depth
+    (``family_config``), weights from seed 0 made on the card, one at a
+    time: each on the paged and
     the dense engine (``family_engine``), its launches exactly
     num_layers x cold prefills (flash) and num_layers x decode forwards;
     gemma3-4b also hops a slot on both engines (``family_hops``)."""
-    from repro_torch.configs import get
     from repro_torch.models.init import init_params
     release()
     zero_counts()
     torch.cuda.synchronize()
     for name, long in FAMILIES:
         t0 = time.perf_counter()
-        cfg = get(name)
+        cfg, full = family_config(name)
         params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
                              device="cuda")
         torch.cuda.synchronize()
@@ -3835,7 +3900,8 @@ def run_families() -> dict:
                           if ls.mixer == "local"})
         log(f"families {name}: {cfg.param_count() / 1e9:.3f}B params "
             f"({cfg.active_param_count() / 1e9:.3f}B active) bf16, "
-            f"{cfg.num_layers} layers in {len(cfg.blocks)} block groups, "
+            f"{cfg.num_layers} layers (depth cut from {full.num_layers}) in "
+            f"{len(cfg.blocks)} block groups, "
             f"head dim {cfg.head_dim}, G {G}, local windows {windows}, "
             f"softcaps {cfg.attn_softcap}/{cfg.logit_softcap}, vocab "
             f"{cfg.padded_vocab}; initialised on the card (seed {SEED}) in "
@@ -3869,6 +3935,241 @@ def run_families() -> dict:
         del params
         release()
     return read_counts()
+
+
+# ---------------------------------------------------------------------------
+# the jamba path: the hybrid mamba / attention / MoE model at full width
+# ---------------------------------------------------------------------------
+
+JAMBA_GEO = dict(slots=4, max_len=1568, device="cuda")
+
+
+class ScanTimer:
+    """Within the block every ``mamba_parallel`` call (a mamba mixer in
+    prefill: in_proj, the causal conv, the plain scan, out_proj) is timed
+    to its end on the card, a synchronise before and after it."""
+
+    def __enter__(self):
+        from repro_torch.models import mamba
+        self.mod, self.orig = mamba, mamba.mamba_parallel
+        self.s, self.calls = 0.0, 0
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t
+            self.calls += 1
+            return out
+
+        mamba.mamba_parallel = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mamba_parallel = self.orig
+
+
+class PrefillWatch:
+    """Within the block every prefill forward of the dense engine first
+    records whether its slot's mamba leaves are all zero."""
+
+    def __enter__(self):
+        from repro_torch.serving import engine
+        self.mod, self.orig, self.zero = engine, engine.forward, []
+
+        def watched(params, batch, *, mode, caches=None, **kw):
+            if mode == "prefill":
+                self.zero.append(all(
+                    not bool(a.any()) for grp in caches for layer in grp
+                    for a in layer.get("mamba", {}).values()))
+            return self.orig(params, batch, mode=mode, caches=caches, **kw)
+
+        engine.forward = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.forward = self.orig
+
+
+def jamba_reuse(cfg, params, eng, tally):
+    """A fifth request (320 prompt tokens, 16 new, greedy) in slot 0,
+    which a finished request left: every mamba leaf of the slot is zero
+    when its prefill starts, slots 1-3's ssm and conv stay untouched bit
+    for bit across its decode steps, and its tokens equal a fresh
+    engine's."""
+    from repro_torch.serving.engine import Engine, Request
+    prompt = np.random.default_rng(SEED + 41).integers(0, cfg.vocab_size, 320)
+    again = Request("j4", prompt, max_new_tokens=16)
+    with PrefillWatch() as watch:
+        tally.add(eng, again)
+    if again.slot != 0 or watch.zero != [True]:
+        raise AssertionError(f"reused slot {again.slot}: mamba leaves zero "
+                             f"at prefill {watch.zero}")
+    idle = _state_rows(eng, slice(1, 4), "mamba")
+    tally.drain(eng)
+    for a, b in zip(idle, _state_rows(eng, slice(1, 4), "mamba")):
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"jamba: inactive slots' {k} changed "
+                                     "across decode steps")
+    fresh = Engine(cfg, params, seed=SEED, **JAMBA_GEO)
+    ref = Request("j4", prompt, max_new_tokens=16)
+    tally.add(fresh, ref)
+    tally.drain(fresh)
+    if again.output != ref.output or len(ref.output) != 16:
+        raise AssertionError(f"jamba reused slot {again.output} != fresh "
+                             f"engine {ref.output}")
+    log("jamba: a fifth request (320 prompt tokens, 16 new) in retired slot "
+        "0 started from all-zero mamba leaves (14 layers' ssm and conv) and "
+        "gave the fresh engine's tokens bit for bit; slots 1-3 ssm and conv "
+        "untouched bit for bit across its 16 decode steps")
+
+
+def jamba_refusal(eng):
+    """A 100-token prompt (over 64, not a multiple of 64: outside the
+    mamba scan's domain) is refused with ``ValueError`` before any slot
+    or cache row moves."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.serving.engine import Request
+    before = [a.clone() for a in leaves(eng.state.caches)]
+    free, active = eng.free_slots, eng.state.active.clone()
+    try:
+        eng.add_request(Request("j100", np.arange(100), max_new_tokens=4))
+    except ValueError as e:
+        why = str(e)
+    else:
+        raise AssertionError("jamba: a 100-token prompt was admitted")
+    if eng.free_slots != free or not torch.equal(eng.state.active, active) \
+            or not all(torch.equal(a, b)
+                       for a, b in zip(before, leaves(eng.state.caches))):
+        raise AssertionError("jamba: the refused prompt moved state")
+    log(f"jamba: a 100-token prompt refused before anything moved: {why}")
+
+
+def run_jamba() -> dict:
+    """jamba-v0.1-52b at full width, 2 of its 4 repeats
+    (``family_config``), weights from seed 0 made on the card (every
+    other model freed), on
+    ``Engine(slots=4, max_len=1568)``: four requests (37, 512, 1024, 1536
+    prompt tokens, 32 new, greedy and sampled alternating); one decode
+    step with each attention layer's kernel call held to its plain
+    version and the logits against the plain versions (``families``'
+    rule, the MoE routes replayed); a reused slot and the idle slots'
+    state; a 100-token prompt refused; profiles of a decode step and of
+    a 1536-token prefill split into the mamba mixers and the rest; a
+    sampled 1024-token slot's v1 hop into an engine of seed 9.  Launches
+    exactly 2 flash_attention a cold prefill and 2 decode_attention a
+    decode forward (the two attention layers), and no other kernel."""
+    from repro_torch.models.init import init_params
+    from repro_torch.serving.engine import Engine, Request
+    release()
+    cfg, full = family_config("jamba-v0.1-52b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                         device="cuda")
+    torch.cuda.synchronize()
+    kinds = [(ls.mixer, ls.ffn) for ls in cfg.layer_specs()]
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    log(f"jamba: {full.name} at full width (d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, d_state {cfg.mamba_d_state}, d_conv "
+        f"{cfg.mamba_d_conv}, GQA {cfg.num_heads} / {cfg.num_kv_heads} "
+        f"heads of {cfg.head_dim}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} of {cfg.moe.d_expert}), depth cut to "
+        f"{cfg.blocks[0].repeats} of {full.blocks[0].repeats} repeats of its "
+        f"8-layer block: {cfg.num_layers} layers ("
+        f"{sum(m == 'mamba' for m, _ in kinds)} mamba, {n_attn} attention, "
+        f"{sum(f == 'moe' for _, f in kinds)} MoE FFN, "
+        f"{sum(f == 'dense' for _, f in kinds)} dense FFN), "
+        f"{cfg.param_count() / 1e9:.3f}B params "
+        f"({cfg.active_param_count() / 1e9:.3f}B active) of "
+        f"{full.param_count() / 1e9:.3f}B "
+        f"({2 * full.param_count() / 1e9:.1f} GB bf16 at full depth: "
+        f"past the card's 80 GB); bf16 from seed "
+        f"{SEED}, initialised on the card in {time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    torch.cuda.synchronize()
+    tally = Tally("jamba")
+    eng = Engine(cfg, params, seed=SEED, **JAMBA_GEO)
+    lens = (37, 512, 1024, 1536)
+    reqs = _requests(cfg, lens, np.random.default_rng(SEED + 40), "j")
+    t = time.perf_counter()
+    tally.add(eng, *reqs)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    for _ in range(8):
+        tally.step(eng)
+    with Shadowed() as shadow:
+        dense_logits(eng)
+    log(f"jamba: each attention layer's decode attention held to its plain "
+        f"version on the layer's own inputs: {shadow.calls} calls, worst "
+        f"element at {shadow.worst:.3f} x its limit (4 bf16 ulps of sum "
+        f"p|v|)")
+    compare_deep("jamba dense", RouteReplay(lambda: dense_logits(eng)))
+    tally.steps["dense"] += 2        # the shadowed probe and compare_deep's
+    step_s = []
+    while eng.requests:
+        t = time.perf_counter()
+        tally.step(eng)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    _check_outputs(cfg, reqs)
+    med = sorted(step_s)[len(step_s) // 2]
+    log(f"jamba: 4 requests x 32 tokens done; prefill {sum(lens)} tokens in "
+        f"{prefill_s:.3f} s = {sum(lens) / prefill_s:.1f} tok/s (the first "
+        f"prefill includes set-up); decode median {med * 1e3:.3f} ms/step "
+        f"over the last {len(step_s)} steps (host clock, synchronised)")
+    jamba_reuse(cfg, params, eng, tally)
+    jamba_refusal(eng)
+
+    # where the time goes: a 1536-token prefill split into the mamba
+    # mixers and the rest, then four decode steps of four rows
+    long = Request("p0", reqs[3].prompt, max_new_tokens=8)
+    with ScanTimer() as scan:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tally.add(eng, long)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    log(f"jamba: a 1536-token prefill took {wall * 1e3:.1f} ms wall, "
+        f"{scan.s * 1e3:.1f} ms ({100 * scan.s / wall:.1f}%) in its "
+        f"{scan.calls} mamba mixers (in_proj, conv, the plain scan: "
+        f"{1536 * scan.calls} token steps, out_proj) and "
+        f"{(wall - scan.s) * 1e3:.1f} ms in the rest (the two attention "
+        f"layers' flash, the MoE and dense FFNs, the head), host clock, "
+        f"each mixer synchronised ({gpu_line()})")
+    for r in _requests(cfg, lens[:3], np.random.default_rng(SEED + 40), "q"):
+        tally.add(eng, r)
+    wall, busy = profiled(lambda: [tally.step(eng) for _ in range(4)],
+                          "jamba decode step (4 rows)", 4)
+    for slot in list(eng.requests):
+        eng.retire(slot)
+    del eng
+    release()
+
+    def landed(src, dst, moved, pos, snap):
+        if moved.slot != 2 or snap.version != 1:
+            raise AssertionError(f"jamba hop: v{snap.version} landed in "
+                                 f"slot {moved.slot}, not 2")
+
+    hop_pair(lambda seed: Engine(cfg, params, seed=seed, **JAMBA_GEO), cfg,
+             tally, "jamba migrate", landed, into=2, resident=192)
+    log("jamba migrate: m0 (1024 prompt tokens, sampled) moved from slot 0 "
+        "to slot 2 of Engine(seed 9) after 8 steps, 14 mamba layers' ssm "
+        "(f32) and conv (bf16) and 2 attention layers' rows: 32 tokens "
+        "equal the unmigrated run's bit for bit; m1, m2 and d0 (192 "
+        "tokens) equal their runs without the hop")
+    counts = read_counts()
+    tally.check(counts, n_attn)
+    log(f"jamba: launches flash_attention={counts['flash_attention']} "
+        f"({n_attn} x {tally.prefills} cold prefills), "
+        f"decode_attention={counts['decode_attention']} ({n_attn} x "
+        f"{tally.steps['dense']} decode forwards, 2 of them logit probes), "
+        f"no other kernel, exactly; decode step {wall:.3f} ms wall / "
+        f"{busy:.3f} ms busy ({gpu_line()})")
+    del params
+    release()
+    return counts
 
 
 def main() -> int:
@@ -3972,6 +4273,7 @@ def main() -> int:
     del rparams
     torch.cuda.empty_cache()
     drive("families", run_families)
+    drive("jamba", run_jamba)
     log(f"paths: wall seconds {wall}")
     for row in rows:
         name = row["name"]

@@ -183,5 +183,5 @@ def _load_all():
     import importlib
     for mod in ("llama_1p5b", "rwkv6_7b", "gemma2_27b", "gemma3_4b",
                 "stablelm_12b", "deepseek_7b", "granite_moe_1b",
-                "deepseek_moe_16b"):
+                "deepseek_moe_16b", "jamba_52b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -88,7 +88,9 @@ def speculative_generate(draft_params, draft_cfg: ModelConfig,
     Both models must share the tokenizer (vocab) and a device.  Returns
     tokens + acceptance statistics.  Every forward is a ``mode="train"``
     pass over the growing sequence, so its length keeps the prefill
-    domain (``ops.check_domain``: above 512, a multiple of 512)."""
+    domain (``ops.check_domain(..., cfg=)``: above 512, a multiple of
+    512; on a model with mamba layers also above 64, a multiple of
+    64)."""
     stats = SpecStats()
     gen = torch.Generator().manual_seed(seed)
     toks = [int(t) for t in np.asarray(prompt, np.int32)]

@@ -49,18 +49,16 @@ class ReprefillRefused(ValueError):
 def check_reprefill(engine, req, committed):
     """Raise ``ReprefillRefused`` if ``engine`` would refuse to admit
     ``req`` with ``committed`` re-prefilled (``add_request``'s domain
-    rule, asked without touching the engine).  A cached full-page prefix
+    rule for the engine's model, asked without touching the engine).  A cached full-page prefix
     on the target exempts it: that warm admission forwards the suffix
     through the decode path."""
     stream = np.concatenate([np.asarray(req.prompt, np.int32),
                              np.asarray(committed, np.int32)])
-    if not getattr(engine, "_attention", True):
-        return                           # a recurrent prefill: any length
     probe = getattr(engine, "prefix_hit_tokens", None)
     if probe is not None and probe(req.tenant, stream):
         return
     try:
-        check_domain(len(stream))
+        check_domain(len(stream), cfg=getattr(engine, "cfg", None))
     except ValueError as e:
         raise ReprefillRefused(
             f"{req.rid}: lossy re-prefill of {len(stream)} tokens "

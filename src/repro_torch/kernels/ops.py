@@ -14,7 +14,12 @@ Prefill attention keeps the reference's prompt-length domain: the JAX
 blockwise path and the Pallas kernel both require every sequence length
 S to satisfy ``S % min(512, S) == 0`` (``models/attention.py:108-109``,
 ``kernels/flash_attention.py:95-97``), so a 700-token prompt is refused
-by both packages.  The CUDA kernel itself masks ragged tile edges.
+by both packages.  The CUDA kernel itself masks ragged tile edges.  A
+model with mamba layers adds the scan's chunk rule, ``S % min(64, S) ==
+0`` (``models/mamba.py:73``), which every mamba layer asserts before any
+attention layer runs: a 100-token jamba prompt is refused, a 100-token
+llama prompt is not.  ``check_domain(..., cfg=cfg)`` is the one rule for
+a model's prefill.
 """
 
 from __future__ import annotations
@@ -42,13 +47,33 @@ def _use_kernel(t) -> bool:
     return t.is_cuda and _backend != "ref"
 
 
-def check_domain(*lengths: int):
-    """Raise ``ValueError`` for a length outside the prefill domain."""
+MAMBA_CHUNK = 64           # the mamba scan's chunk (``models/mamba.py``)
+
+
+def check_chunks(T: int):
+    """The mamba scan's domain: T a multiple of ``min(MAMBA_CHUNK, T)``
+    (the reference asserts it)."""
+    if T < 1 or T % min(MAMBA_CHUNK, T):
+        raise ValueError(
+            f"sequence length {T} outside the mamba scan's domain: a "
+            f"length over {MAMBA_CHUNK} must be a multiple of "
+            f"{MAMBA_CHUNK}")
+
+
+def check_domain(*lengths: int, cfg=None):
+    """Raise ``ValueError`` for a length outside the prefill domain: the
+    attention rule alone without ``cfg``; with ``cfg``, the rule of each
+    mixer kind the model has (attention's, the mamba scan's; rwkv takes
+    any length)."""
+    kinds = ({"attn"} if cfg is None else
+             {ls.mixer for b in cfg.blocks for ls in b.layers})
     for S in lengths:
-        if S % min(512, S):
+        if kinds & {"attn", "local"} and S % min(512, S):
             raise ValueError(
                 f"sequence length {S} outside the reference's domain: a "
                 "length over 512 must be a multiple of 512")
+        if "mamba" in kinds:
+            check_chunks(S)
 
 
 def attention_causal(q, k, v, *, softcap=0.0):

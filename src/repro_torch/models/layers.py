@@ -1,7 +1,8 @@
 """Per-layer building blocks: norms, RoPE, the gated MLP, the attention
 module over dense per-row KV caches or shared KV page pools, the RWKV6
-recurrent cache, and the layer dispatcher (attention with the dense MLP
-or the MoE FFN of ``models/moe.py``, or rwkv).
+and mamba recurrent caches, and the layer dispatcher (an attention or
+mamba mixer with the dense MLP or the MoE FFN of ``models/moe.py``, or
+rwkv).
 
 Dense cache convention (one dict per attention layer):
   k, v     : (B, S_c, KV, Dh)   S_c = window for "local", seq budget else
@@ -23,6 +24,11 @@ RWKV6 cache (one dict per rwkv layer):
   x_tm, x_cm : (B, d) the last token's input to the time / channel mix
   write      : (B,) bool, optional, as for the dense attention cache
 
+Mamba cache (one dict per mamba layer):
+  ssm        : (B, d_inner, d_state) fp32 SSM state
+  conv       : (B, d_conv - 1, d_inner) the causal conv's input tail
+  write      : (B,) bool, optional, as for the dense attention cache
+
 Unlike the JAX package, which returns new caches from ``.at[].set``, the
 port writes K/V into the caches and pools, and the recurrent state into
 its cache, in place (they are the engine's largest tensors; copying them
@@ -37,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import decode_attend
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.init import torch_dtype
@@ -139,27 +146,39 @@ def make_rwkv_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
                                 device=device)}
 
 
+def make_mamba_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+    """The zero recurrent state of one mamba layer."""
+    return {"ssm": torch.zeros((batch, cfg.d_inner, cfg.mamba_d_state),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, cfg.d_inner),
+                                dtype=torch_dtype(cfg.dtype), device=device)}
+
+
 def make_layer_cache(cfg: ModelConfig, lspec: LayerSpec, batch: int,
                      max_len: int, device="cuda") -> dict:
-    """One layer's dense cache: attention or rwkv mixers.  mamba and
-    cross-attention caches come with their model families (ROADMAP
-    Queue 1)."""
-    if lspec.mixer in ("attn", "local") and not cfg.cross_attention:
-        return {"attn": make_attn_cache(cfg, lspec, batch, max_len,
-                                        device=device)}
-    if lspec.mixer == "rwkv" and not cfg.cross_attention:
-        return {"rwkv": make_rwkv_cache(cfg, batch, device=device)}
+    """One layer's dense cache: attention, rwkv or mamba mixers.
+    Cross-attention caches come with their model family (ROADMAP Queue
+    1)."""
+    if not cfg.cross_attention:
+        if lspec.mixer in ("attn", "local"):
+            return {"attn": make_attn_cache(cfg, lspec, batch, max_len,
+                                            device=device)}
+        if lspec.mixer == "rwkv":
+            return {"rwkv": make_rwkv_cache(cfg, batch, device=device)}
+        if lspec.mixer == "mamba":
+            return {"mamba": make_mamba_cache(cfg, batch, device=device)}
     raise NotImplementedError(
         f"layer {lspec} (cross-attention {cfg.cross_attention}) has no "
         "ported cache yet (ROADMAP Queue 1, other model families)")
 
 
-def _write_rwkv(cache, state, x_tm, x_cm):
-    """Store a layer's new recurrent state in place; rows whose
-    ``cache["write"]`` is False keep theirs (the JAX engine masks them
-    back with ``jnp.where`` after the step)."""
+def _write_state(cache, **new):
+    """Store a layer's new recurrent state (rwkv or mamba leaves, by
+    name) in place; rows whose ``cache["write"]`` is False keep theirs
+    (the JAX engine masks them back with ``jnp.where`` after the
+    step)."""
     write = cache.get("write")
-    for key, new in (("state", state), ("x_tm", x_tm), ("x_cm", x_cm)):
+    for key, new in new.items():
         old = cache[key]
         new = new.to(old.dtype)
         if write is not None:
@@ -261,22 +280,26 @@ def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
 
 def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
                 positions, cache=None):
-    """One layer: an attention mixer + the dense gated MLP or the MoE
-    FFN, or the rwkv time mix + the rwkv channel mix.  Returns x; caches
-    are written in place.  The MoE's load-balancing loss is dropped, as
+    """One layer: an attention or mamba mixer + the dense gated MLP or
+    the MoE FFN, or the rwkv time mix + the rwkv channel mix.  Returns x;
+    caches are written in place.  The MoE's load-balancing loss is dropped, as
     the engines drop it."""
-    if lspec.mixer not in ("attn", "local", "rwkv") or lspec.ffn not in (
-            "dense", "moe", "none"):
+    if lspec.mixer not in ("attn", "local", "rwkv", "mamba") \
+            or lspec.ffn not in ("dense", "moe", "none"):
         raise NotImplementedError(
             f"layer {lspec} is not ported yet (ROADMAP Queue 1, other "
             "model families)")
     if lspec.mixer == "rwkv":
         return _rwkv_layer(p, x, cfg=cfg, lspec=lspec, mode=mode,
                            cache=(cache or {}).get("rwkv"))
-    h = rmsnorm(x, p["attn"]["ln"]["scale"], cfg.norm_eps)
-    x = x + attention_apply(p["attn"], h, cfg=cfg, lspec=lspec, mode=mode,
-                            positions=positions,
-                            cache=(cache or {}).get("attn"))
+    if lspec.mixer == "mamba":
+        x = _mamba_mixer(p, x, cfg=cfg, mode=mode,
+                         cache=(cache or {}).get("mamba"))
+    else:
+        h = rmsnorm(x, p["attn"]["ln"]["scale"], cfg.norm_eps)
+        x = x + attention_apply(p["attn"], h, cfg=cfg, lspec=lspec,
+                                mode=mode, positions=positions,
+                                cache=(cache or {}).get("attn"))
     if lspec.ffn == "dense":
         h = rmsnorm(x, p["mlp"]["ln"]["scale"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg)
@@ -313,5 +336,24 @@ def _rwkv_layer(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
             x_last=x_cm.to(h.dtype) if x_cm is not None else None)
         x = x + h
     if mode != "train" and cache:
-        _write_rwkv(cache, st, xl, x_cm)
+        _write_state(cache, state=st, x_tm=xl, x_cm=x_cm)
     return x
+
+
+def _mamba_mixer(p, x, *, cfg: ModelConfig, mode: str, cache):
+    """The mamba mixer and its residual: decode steps the recurrence one
+    token; train and prefill run the chunked scan from the state the
+    cache holds (zeros without a cache).  Outside train the new state
+    goes into ``cache`` in place."""
+    h = rmsnorm(x, p["mamba"]["ln"]["scale"], cfg.norm_eps)
+    if mode == "decode":
+        h, st, tail = mamba_mod.mamba_step(p["mamba"], h, cfg,
+                                           state=cache["ssm"],
+                                           conv_tail=cache["conv"])
+    else:
+        h, st, tail = mamba_mod.mamba_parallel(
+            p["mamba"], h, cfg, state=cache["ssm"] if cache else None,
+            conv_tail=cache["conv"] if cache else None)
+    if mode != "train" and cache:
+        _write_state(cache, ssm=st, conv=tail)
+    return x + h

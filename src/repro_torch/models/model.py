@@ -3,12 +3,13 @@
 The model is ``repeat(block)`` groups (configs.base.BlockDef); parameters
 and caches carry a leading ``repeats`` dim per group, as in the JAX
 package, and a Python loop runs groups x repeats x layers where JAX uses
-``lax.scan``.  One ``forward`` serves all three modes:
+``lax.scan``; a hybrid block (jamba's) runs its mamba, attention and MoE
+layers within each repeat.  One ``forward`` serves all three modes:
 
   train   : full sequence, no cache
   prefill : full sequence, writes the row's KV cache or pages, or its
-            recurrent state (rwkv layers, starting from the state the
-            cache holds)
+            recurrent state (rwkv and mamba layers, starting from the
+            state the cache holds)
   decode  : one token per row (or a verify window, dense attention
             caches only) against the KV cache or pages, or one step of
             the recurrence
@@ -27,9 +28,9 @@ from repro_torch.models.schema import tree_map
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Full dense model cache (attention KV rows, or the recurrent state
-    of rwkv layers): [group][layer_in_block], every leaf stacked over
-    repeats (a leading ``repeats`` dim, then batch), as in the JAX
-    package."""
+    of rwkv and mamba layers; a hybrid group holds both):
+    [group][layer_in_block], every leaf stacked over repeats (a leading
+    ``repeats`` dim, then batch), as in the JAX package."""
     dev = resolve(device)
     groups = []
     for block in cfg.blocks:
@@ -74,7 +75,8 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
     batch: {"tokens": (B, S)}.  ``caches`` is the per-layer tree
     ([group][layer] {"attn": {k, v, abs_pos[, write]}} dense, or
     {"attn": {k_pool, v_pool, page_table}} paged, or {"rwkv": {state,
-    x_tm, x_cm[, write]}} recurrent, every leaf stacked over repeats);
+    x_tm, x_cm[, write]}} or {"mamba": {ssm, conv[, write]}} recurrent,
+    every leaf stacked over repeats);
     it is written in place, where the JAX ``forward`` returns new caches
     and an aux loss (the MoE layers' load-balancing loss, which the
     engines drop, as the JAX engines do).

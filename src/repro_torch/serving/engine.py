@@ -9,10 +9,11 @@ surface (``step_probs``, the three ``verify_slots*`` modes and
 speculative execution.
 
 Prefill runs the hand-written flash-attention kernel (attention
-models) or the ``rwkv6_scan`` kernel (rwkv models); every one-token
-decode step of an attention model runs the dense ``decode_attention``
-kernel over the caches in place, and an rwkv model steps its recurrence
-in plain torch; a wide verify window (several queries per slot) runs
+layers), the ``rwkv6_scan`` kernel (rwkv layers) or the plain mamba scan
+(mamba layers; the JAX package has no kernel for it); every one-token
+decode step runs the dense ``decode_attention`` kernel on each attention
+layer's cache in place, and steps the rwkv and mamba recurrences in
+plain torch; a wide verify window (several queries per slot) runs
 the plain ``decode_attend``, as the JAX package leaves that window to
 XLA.
 
@@ -20,8 +21,11 @@ Where the JAX package returns a new state from each jitted step, the
 port updates the state's tensors in place, and masks inactive slots'
 cache writes inside the forward (``cache["write"]``) instead of copying
 every cache back afterwards.  A request starts from the zero recurrent
-state: ``add_request`` clears the slot's rwkv caches before its prefill
-(the JAX engine starts from whatever the slot's last request left).
+state: ``add_request`` clears the slot's rwkv and mamba caches before
+its prefill (the JAX engine starts from whatever the slot's last
+request left).  The prompt-length domain is the model's
+(``ops.check_domain(..., cfg=)``): attention's, and on a hybrid model
+the mamba scan's too, checked before the slot is taken.
 The migration surface (``extract_slot``, ``inject_slot``,
 ``slot_like``) moves one slot's cache rows (attention KV or recurrent
 state alike), tokens, position, RNG and policy as a ``SlotSnapshot``
@@ -240,8 +244,7 @@ class Engine:
         self.cfg = cfg
         self.params = params
         mixers = {ls.mixer for b in cfg.blocks for ls in b.layers}
-        self._attention = bool(mixers & {"attn", "local"})
-        self._recurrent = "rwkv" in mixers
+        self._recurrent = bool(mixers & {"rwkv", "mamba"})
         self.slots = slots
         self.max_len = max_len
         self.requests: dict[int, Request] = {}
@@ -326,8 +329,7 @@ class Engine:
             prefix = np.concatenate(
                 [prefix, np.asarray(committed, np.int32)])
         plen = len(prefix)
-        if self._attention:
-            check_domain(plen)           # refuse before the slot is taken
+        check_domain(plen, cfg=self.cfg)  # refuse before the slot is taken
         slot = free[0]
         req.slot = slot
         self.requests[slot] = req
@@ -710,8 +712,8 @@ def _slot_arrays(state: EngineState, slot: int, *, copy: bool) -> SlotArrays:
 # ---------------------------------------------------------------------------
 
 def _weave_write(caches, write):
-    """Attach the (B,) write mask to every layer's cache dicts (attn or
-    rwkv), expanded (a view) to the layer's stacked (R, B)."""
+    """Attach the (B,) write mask to every layer's cache dicts (attn,
+    rwkv or mamba), expanded (a view) to the layer's stacked (R, B)."""
     def weave(c):
         c = dict(c)
         R = next(iter(c.values())).shape[0]
@@ -733,8 +735,9 @@ def _prefill(params, state: EngineState, prompt, *, slot: int, plen: int,
             for layer in grp] for grp in state.caches]
     for grp in sub:
         for layer in grp:
-            for a in layer.get("rwkv", {}).values():
-                a.zero_()
+            for kind in ("rwkv", "mamba"):
+                for a in layer.get(kind, {}).values():
+                    a.zero_()
     forward(params, {"tokens": prompt}, cfg=cfg, mode="prefill", caches=sub)
     state.tokens[slot, :plen] = prompt[0]
     state.positions[slot] = plen

@@ -103,7 +103,8 @@ def _tokens(B, S, seed=0):
 
 def test_the_port_registers_the_six_families():
     assert set(FAMILIES) <= set(names())
-    assert set(names()) <= set(FAMILIES) | {"llama-1.5b", "rwkv6-7b"}
+    assert set(names()) <= set(FAMILIES) | {"llama-1.5b", "rwkv6-7b",
+                                            "jamba-v0.1-52b"}
 
 
 @pytest.mark.parametrize("name", FAMILIES)

@@ -45,6 +45,8 @@ missing = sorted({{"repro_torch.core.speculation", "repro_torch.core.validation"
                   "repro_torch.configs.granite_moe_1b",
                   "repro_torch.configs.deepseek_moe_16b",
                   "repro_torch.models.moe",
+                  "repro_torch.configs.jamba_52b",
+                  "repro_torch.models.mamba",
                   "repro_torch.core.migration", "repro_torch.core.workspace",
                   "repro_torch.core.channel", "repro_torch.core.attestation",
                   "repro_torch.core.crypto", "repro_torch.core.msgpack_subset",

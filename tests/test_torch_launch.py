@@ -184,9 +184,9 @@ def test_fleet_socket_refuses_sim_only_flags(flag, capsys):
 @pytest.mark.parametrize("cli", [fleet_cli, serve_cli],
                          ids=["fleet", "serve"])
 def test_arch_the_port_lacks_is_a_usage_error(cli, capsys):
-    code, _, err = run(cli, TINY + ["--arch", "jamba-52b"], capsys)
+    code, _, err = run(cli, TINY + ["--arch", "whisper-base"], capsys)
     assert code == 2
-    assert "Queue 1 item 6" in err and "jamba-52b" in err
+    assert "Queue 1 item 6" in err and "whisper-base" in err
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

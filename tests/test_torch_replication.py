@@ -281,7 +281,8 @@ def test_decide_matches_jax_on_the_same_profiles(sensitivity, work):
             assert dataclasses.asdict(tdec) == dataclasses.asdict(jdec)
 
 
-@pytest.mark.parametrize("name", ["llama-1.5b", "rwkv6-7b"])
+@pytest.mark.parametrize("name", ["llama-1.5b", "rwkv6-7b",
+                                  "jamba-v0.1-52b"])
 def test_param_counts_match_jax(name):
     jcfg, tcfg = jget(name), get(name)
     assert tinit.param_bytes(tcfg) == jinit.param_bytes(jcfg)

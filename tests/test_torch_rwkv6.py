@@ -242,12 +242,15 @@ def test_rwkv_cache_layout_and_masked_writes():
     old = {k: v.clone() for k, v in cache.items()}
     cache["write"] = torch.tensor([True, False, True])
     new = {k: torch.full_like(v, 2.0) for k, v in old.items()}
-    tlayers._write_rwkv(cache, new["state"], new["x_tm"], new["x_cm"])
+    tlayers._write_state(cache, state=new["state"], x_tm=new["x_tm"],
+                         x_cm=new["x_cm"])
     for key in new:
         assert torch.equal(cache[key][[0, 2]], new[key][[0, 2]])
         assert torch.equal(cache[key][1], old[key][1])       # masked row
+    # a cross-attention cache (whisper-base's decoder) is a later family
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tlayers.make_layer_cache(tcfg, LayerSpec("mamba", "dense"), 1, 8,
+        tlayers.make_layer_cache(tcfg.replace(cross_attention=True),
+                                 LayerSpec("attn", "dense"), 1, 8,
                                  device="cpu")
 
 
