@@ -1,8 +1,9 @@
-from repro_torch.configs.base import (ArchEntry, BlockDef, LayerSpec,
-                                      ModelConfig, MoESpec, entry, get,
-                                      names, register)
+from repro_torch.configs.base import (SHAPES, ArchEntry, BlockDef,
+                                      LayerSpec, ModelConfig, MoESpec,
+                                      ShapeSpec, entry, get, names,
+                                      register)
 
 __all__ = [
-    "ArchEntry", "BlockDef", "LayerSpec", "ModelConfig", "MoESpec",
-    "entry", "get", "names", "register",
+    "SHAPES", "ArchEntry", "BlockDef", "LayerSpec", "ModelConfig",
+    "MoESpec", "ShapeSpec", "entry", "get", "names", "register",
 ]

@@ -140,6 +140,42 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# input shapes (the reference's four shape cells)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One shape cell: sequence length, global batch and step kind.
+    ``rule_overrides`` (the reference's sharding-rule overrides for the
+    cell) is carried as data; on one card it changes nothing."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+    rule_overrides: tuple[tuple[str, object], ...] = ()
+
+    @property
+    def overrides(self) -> dict:
+        return dict(self.rule_overrides)
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train",
+                          rule_overrides=(("embed", ("data",)),)),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill",
+                             rule_overrides=(("cache_seq", ("model",)),
+                                             ("kv_dim", None))),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode",
+                            rule_overrides=(("cache_seq", ("model",)),
+                                            ("kv_dim", None))),
+    "long_500k": ShapeSpec(
+        "long_500k", 524288, 1, "decode",
+        rule_overrides=(("cache_seq", ("data",)), ("batch", None)),
+    ),
+}
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -183,5 +219,6 @@ def _load_all():
     import importlib
     for mod in ("llama_1p5b", "rwkv6_7b", "gemma2_27b", "gemma3_4b",
                 "stablelm_12b", "deepseek_7b", "granite_moe_1b",
-                "deepseek_moe_16b", "jamba_52b"):
+                "deepseek_moe_16b", "jamba_52b", "whisper_base",
+                "internvl2_26b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -91,6 +91,19 @@ def attention_windowed(q, k, v, *, window, softcap=0.0):
     return fa.plain(q, k, v, causal=True, window=window, softcap=softcap)
 
 
+def attention_full(q, k, v, *, softcap=0.0):
+    """Full (non-causal) attention: an encoder's self-attention and
+    cross-attention, where Sq (decoder tokens) may differ from Skv
+    (frames).  Both lengths keep the prefill domain, as the reference's
+    ``flash_full`` asserts for each.  The reference's ``kv_len`` is
+    dropped by its Pallas branch and passed by no caller, so the port
+    takes none (ROADMAP Queue 3)."""
+    check_domain(q.shape[1], k.shape[1])
+    if _use_kernel(q):
+        return fa.flash_attention(q, k, v, causal=False, softcap=softcap)
+    return fa.plain(q, k, v, causal=False, softcap=softcap)
+
+
 def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *,
                            page_size, window=0, softcap=0.0):
     """One-token attention over a paged KV pool.

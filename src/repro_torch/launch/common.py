@@ -11,11 +11,17 @@ from repro_torch.configs import get, names
 from repro_torch.configs.tiny import make_tiny
 from repro_torch.device import resolve
 from repro_torch.models.init import init_params
+from repro_torch.serving.engine import takes_front_end
+
+
+def serveable() -> list[str]:
+    """The registered configs an engine can serve: token-only models."""
+    return [n for n in names() if takes_front_end(get(n)) is None]
 
 
 def add_common(ap: argparse.ArgumentParser, *, default_arch="llama-1.5b"):
     ap.add_argument("--arch", default=default_arch,
-                    help=f"model config: {', '.join(names())}")
+                    help=f"model config: {', '.join(serveable())}")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
@@ -24,12 +30,16 @@ def add_common(ap: argparse.ArgumentParser, *, default_arch="llama-1.5b"):
 
 def setup(ap: argparse.ArgumentParser, args):
     """(cfg, device) from ``--arch``, ``--tiny`` and ``--device``.  An
-    architecture the port lacks is a usage error (exit 2); a missing
-    card ends the run with ``device.resolve``'s message (exit 1) -- it
-    never falls back to the CPU."""
-    if args.arch not in names():
-        ap.error(f"--arch {args.arch!r}: the port serves {names()}; the "
-                 "other model families are ROADMAP Queue 1 item 6")
+    architecture the engines cannot serve (unknown, or one whose model
+    takes encoder frames or patch embeddings) is a usage error (exit 2);
+    a missing card ends the run with ``device.resolve``'s message (exit
+    1) -- it never falls back to the CPU."""
+    served = serveable()
+    if args.arch not in served:
+        ap.error(f"--arch {args.arch!r}: the engines serve token-only "
+                 f"models {served}; whisper-base and internvl2-26b also "
+                 "take frames or patch embeddings and run through "
+                 "models.model.forward")
     try:
         dev = resolve(args.device)
     except RuntimeError as e:

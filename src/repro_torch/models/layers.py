@@ -10,7 +10,9 @@ Dense cache convention (one dict per attention layer):
   write    : (B,) bool, optional, woven in by the engine before a forward:
              rows where it is False keep their cache untouched
 Local layers ring-buffer by ``abs_pos % window``; global layers index by
-absolute position.
+absolute position.  An encoder-decoder's layer also holds a ``cross``
+cache of the same form: the encoder frames' K/V at ``abs_pos``
+0..S_f-1, written once at prefill.
 
 Paged cache convention (one dict per attention layer):
   k_pool, v_pool : (P, page_size, KV, Dh) pools shared by every batch row
@@ -155,21 +157,23 @@ def make_mamba_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
 
 
 def make_layer_cache(cfg: ModelConfig, lspec: LayerSpec, batch: int,
-                     max_len: int, device="cuda") -> dict:
-    """One layer's dense cache: attention, rwkv or mamba mixers.
-    Cross-attention caches come with their model family (ROADMAP Queue
-    1)."""
-    if not cfg.cross_attention:
-        if lspec.mixer in ("attn", "local"):
-            return {"attn": make_attn_cache(cfg, lspec, batch, max_len,
-                                            device=device)}
-        if lspec.mixer == "rwkv":
-            return {"rwkv": make_rwkv_cache(cfg, batch, device=device)}
-        if lspec.mixer == "mamba":
-            return {"mamba": make_mamba_cache(cfg, batch, device=device)}
-    raise NotImplementedError(
-        f"layer {lspec} (cross-attention {cfg.cross_attention}) has no "
-        "ported cache yet (ROADMAP Queue 1, other model families)")
+                     max_len: int, cross: bool = False, cross_len: int = 0,
+                     device="cuda") -> dict:
+    """One layer's dense cache: attention, rwkv or mamba mixers, and with
+    ``cross`` a cross-attention cache of ``cross_len`` slots (the
+    encoder frames' K/V, written once at prefill)."""
+    c: dict = {}
+    if lspec.mixer in ("attn", "local"):
+        c["attn"] = make_attn_cache(cfg, lspec, batch, max_len,
+                                    device=device)
+    elif lspec.mixer == "rwkv":
+        c["rwkv"] = make_rwkv_cache(cfg, batch, device=device)
+    elif lspec.mixer == "mamba":
+        c["mamba"] = make_mamba_cache(cfg, batch, device=device)
+    if cross:
+        c["cross"] = make_attn_cache(cfg, LayerSpec("attn", "none"), batch,
+                                     cross_len, device=device)
+    return c
 
 
 def _write_state(cache, **new):
@@ -218,8 +222,21 @@ def _write_pages(cache, k, v, positions):
     v_pool[page, off] = v.reshape((-1,) + v.shape[2:])[keep]
 
 
+def _decode_attend(q, cache, positions, window, softcap):
+    """Dense decode attention over ``cache``: one token per row (S = 1)
+    goes to the ``decode_attention`` kernel, a wider window to the plain
+    ``decode_attend``.  ``positions``: (B, S)."""
+    if q.shape[1] == 1:
+        return kops.decode_attention(
+            q, cache["k"], cache["v"], cache["abs_pos"],
+            positions[:, 0].to(torch.int32), window=window, softcap=softcap)
+    return decode_attend(q, cache["k"], cache["v"], cache["abs_pos"],
+                         positions, window=window, softcap=softcap)
+
+
 def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
-                    positions, cache=None):
+                    positions, cache=None, kv_x=None, causal=True,
+                    cross=False):
     """Returns out (B,S,d); K/V go into ``cache`` in place.
 
     mode: "train" | "prefill" | "decode".  Prefill and train attend only
@@ -230,17 +247,36 @@ def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
     goes to the ``decode_attention`` kernel, and a speculative verify
     window (S > 1, each query at its own position) to the plain
     ``decode_attend``, as the JAX package leaves that window to XLA.
+
+    ``causal=False`` is an encoder's self-attention (full mode).
+    ``cross=True`` (or a ``kv_x``) is cross-attention: K/V come from
+    ``kv_x`` (the encoder's output) with no RoPE on q or k, attend in
+    full mode, and prefill writes them into the cross cache at
+    ``abs_pos`` 0..S_f-1; decode attends over that cache with every
+    row's position at 2^30 (every written slot valid), through the
+    ``decode_attention`` kernel where the reference runs the plain
+    ``decode_attend``.
     """
     window = lspec.window if lspec.mixer == "local" else 0
+    cross = cross or kv_x is not None
 
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    if mode == "decode" and cross:
+        far = torch.full((q.shape[0], q.shape[1]), 1 << 30,
+                         dtype=torch.int32, device=q.device)
+        o = _decode_attend(q, cache, far, 0, cfg.attn_softcap)
+        return torch.einsum("bthk,hkd->btd", o, p["wo"])
+
+    src = kv_x if cross else x
+    k = torch.einsum("btd,dhk->bthk", src, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", src, p["wv"])
+    if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if not cross:      # cross-attention keys are position-free
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if mode == "decode" and "k_pool" in cache:
         _write_pages(cache, k, v, positions)
@@ -251,23 +287,22 @@ def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
             softcap=cfg.attn_softcap)
     elif mode == "decode":
         _write_cache(cache, lspec, k, v, positions)
-        if q.shape[1] == 1:
-            o = kops.decode_attention(
-                q, cache["k"], cache["v"], cache["abs_pos"],
-                positions[:, 0].to(torch.int32), window=window,
-                softcap=cfg.attn_softcap)
-        else:
-            o = decode_attend(q, cache["k"], cache["v"], cache["abs_pos"],
-                              positions, window=window,
-                              softcap=cfg.attn_softcap)
+        o = _decode_attend(q, cache, positions, window, cfg.attn_softcap)
     else:
-        if window:
+        if cross or not causal:
+            o = kops.attention_full(q, k, v, softcap=cfg.attn_softcap)
+        elif window:
             o = kops.attention_windowed(q, k, v, window=window,
                                         softcap=cfg.attn_softcap)
         else:
             o = kops.attention_causal(q, k, v, softcap=cfg.attn_softcap)
         if mode == "prefill" and cache is not None:
-            if "k_pool" in cache:
+            if cross:      # the forward checked that the frames fit
+                S_f = k.shape[1]
+                pos = torch.arange(S_f, device=k.device)[None].expand(
+                    k.shape[0], S_f)
+                _write_cache(cache, LayerSpec("attn", "none"), k, v, pos)
+            elif "k_pool" in cache:
                 _write_pages(cache, k, v, positions)
             else:
                 _write_cache(cache, lspec, k, v, positions)
@@ -279,11 +314,13 @@ def attention_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
 # ---------------------------------------------------------------------------
 
 def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
-                positions, cache=None):
-    """One layer: an attention or mamba mixer + the dense gated MLP or
-    the MoE FFN, or the rwkv time mix + the rwkv channel mix.  Returns x;
-    caches are written in place.  The MoE's load-balancing loss is dropped, as
-    the engines drop it."""
+                positions, cache=None, enc_out=None, causal=True):
+    """One layer: an attention or mamba mixer (self-attention in full
+    mode with ``causal=False``), then a decoder's cross-attention block
+    where it has one (with ``enc_out``, or in decode over its cross
+    cache), then the dense gated MLP or the MoE FFN; or the rwkv time
+    mix + the rwkv channel mix.  Returns x; caches are written in place.
+    The MoE's load-balancing loss is dropped, as the engines drop it."""
     if lspec.mixer not in ("attn", "local", "rwkv", "mamba") \
             or lspec.ffn not in ("dense", "moe", "none"):
         raise NotImplementedError(
@@ -299,7 +336,15 @@ def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
         h = rmsnorm(x, p["attn"]["ln"]["scale"], cfg.norm_eps)
         x = x + attention_apply(p["attn"], h, cfg=cfg, lspec=lspec,
                                 mode=mode, positions=positions,
-                                cache=(cache or {}).get("attn"))
+                                cache=(cache or {}).get("attn"),
+                                causal=causal)
+    if "cross" in p and (enc_out is not None or mode == "decode"):
+        h = rmsnorm(x, p["cross"]["ln"]["scale"], cfg.norm_eps)
+        x = x + attention_apply(p["cross"], h, cfg=cfg,
+                                lspec=LayerSpec("attn", "none"), mode=mode,
+                                positions=positions,
+                                cache=(cache or {}).get("cross"),
+                                kv_x=enc_out, cross=True)
     if lspec.ffn == "dense":
         h = rmsnorm(x, p["mlp"]["ln"]["scale"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg)

@@ -13,6 +13,9 @@ layers within each repeat.  One ``forward`` serves all three modes:
   decode  : one token per row (or a verify window, dense attention
             caches only) against the KV cache or pages, or one step of
             the recurrence
+
+Encoder-decoder (whisper) runs the encoder inside prefill and train;
+VLM (internvl2) prepends projected stub patch embeddings.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ from repro_torch.models.layers import layer_apply, make_layer_cache, rmsnorm
 from repro_torch.models.schema import tree_map
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               cross_len: int = 0):
     """Full dense model cache (attention KV rows, or the recurrent state
-    of rwkv and mamba layers; a hybrid group holds both):
+    of rwkv and mamba layers; a hybrid group holds both; a decoder with
+    cross-attention also a ``cross`` cache of ``cross_len`` frames):
     [group][layer_in_block], every leaf stacked over repeats (a leading
     ``repeats`` dim, then batch), as in the JAX package."""
     dev = resolve(device)
@@ -36,7 +41,9 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     for block in cfg.blocks:
         layers = []
         for ls in block.layers:
-            one = make_layer_cache(cfg, ls, batch, max_len, device=dev)
+            one = make_layer_cache(cfg, ls, batch, max_len,
+                                   cross=cfg.cross_attention,
+                                   cross_len=cross_len, device=dev)
             layers.append(tree_map(
                 lambda a, n=block.repeats: a[None].repeat(
                     (n,) + (1,) * a.ndim), one))
@@ -45,7 +52,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 
 
 def _run_groups(params_blocks, x, *, cfg: ModelConfig, blocks, mode,
-                positions, caches):
+                positions, caches, enc_out=None, causal=True):
     for gi, block in enumerate(blocks):
         p_group = params_blocks[gi]
         c_group = caches[gi] if caches is not None else None
@@ -55,7 +62,8 @@ def _run_groups(params_blocks, x, *, cfg: ModelConfig, blocks, mode,
                 c_r = (tree_map(lambda a: a[r], c_group[li])
                        if c_group is not None else None)
                 x = layer_apply(p_r, x, cfg=cfg, lspec=lspec, mode=mode,
-                                positions=positions, cache=c_r)
+                                positions=positions, cache=c_r,
+                                enc_out=enc_out, causal=causal)
     return x
 
 
@@ -72,32 +80,74 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
             caches=None):
     """Returns logits (B, S, V_pad).
 
-    batch: {"tokens": (B, S)}.  ``caches`` is the per-layer tree
+    batch: {"tokens": (B, S_t)} plus, outside decode,
+           "frames": (B, S_f, d_model)   (audio stub front end; or a
+                                          precomputed "enc_out")
+           "patch_embeds": (B, P, 1024)  (vlm stub front end: the logits
+                                          and default positions cover
+                                          P + S_t)
+    ``caches`` is the per-layer tree
     ([group][layer] {"attn": {k, v, abs_pos[, write]}} dense, or
     {"attn": {k_pool, v_pool, page_table}} paged, or {"rwkv": {state,
     x_tm, x_cm[, write]}} or {"mamba": {ssm, conv[, write]}} recurrent,
-    every leaf stacked over repeats);
+    plus {"cross": {k, v, abs_pos}} for an encoder-decoder; every leaf
+    stacked over repeats);
     it is written in place, where the JAX ``forward`` returns new caches
     and an aux loss (the MoE layers' load-balancing loss, which the
     engines drop, as the JAX engines do).
     """
-    if cfg.encoder_blocks or cfg.num_patches or cfg.cross_attention:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder / vision / cross-attention front ends are "
-            "not ported yet (ROADMAP Queue 1, other model families)")
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
+    dtype = torch_dtype(cfg.dtype)
+
+    enc_out = batch.get("enc_out")       # precomputed at prefill
+    if cfg.encoder_blocks and mode != "decode" and enc_out is None:
+        frames = batch["frames"].to(dtype)
+        if mode == "prefill" and caches is not None:
+            _check_cross(caches, frames.shape[1])
+        fpos = torch.arange(frames.shape[1], device=frames.device)[
+            None].expand(frames.shape[:2])
+        enc_p = params["encoder"]
+        enc_out = _run_groups(enc_p["blocks"], frames, cfg=cfg,
+                              blocks=cfg.encoder_blocks, mode="train",
+                              positions=fpos, caches=None, causal=False)
+        enc_out = rmsnorm(enc_out, enc_p["final_norm"]["scale"],
+                          cfg.norm_eps)
+    elif enc_out is not None and mode == "prefill" and caches is not None:
+        _check_cross(caches, enc_out.shape[1])
+
     x = embed_tokens(params, tokens, cfg)
+    if cfg.num_patches and mode != "decode":
+        pe = torch.einsum("bpk,kd->bpd", batch["patch_embeds"].to(dtype),
+                          params["patch_proj"])
+        x = torch.cat([pe, x], dim=1)
+    S = x.shape[1]
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
     x = _run_groups(params["blocks"], x, cfg=cfg, blocks=cfg.blocks,
-                    mode=mode, positions=positions, caches=caches)
+                    mode=mode, positions=positions, caches=caches,
+                    enc_out=enc_out)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = lm_logits(params, x, cfg)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
+
+
+def _check_cross(caches, frames: int):
+    """A cross cache must hold every frame.  The reference writes frame p
+    at slot min(p, S_c - 1), so a shorter cache piles the extra frames
+    into its last slot (one of them survives: the last on the JAX CPU
+    scatter, any one on a CUDA ``index_put_``); the port refuses the
+    prefill before any layer writes (ROADMAP Queue 3).  A longer cache
+    leaves slots at ``abs_pos`` -1, which attention masks."""
+    for group in caches:
+        for layer in group:
+            S_c = layer["cross"]["k"].shape[2] if "cross" in layer else frames
+            if frames > S_c:
+                raise ValueError(f"a cross-attention cache of {S_c} slots "
+                                 f"cannot hold {frames} encoder frames")
 
 
 def vocab_mask_logits(logits, cfg: ModelConfig):

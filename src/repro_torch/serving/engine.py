@@ -228,6 +228,27 @@ def _slot_generator(rng: torch.Generator, slot: int) -> torch.Generator:
     return gen
 
 
+def takes_front_end(cfg: ModelConfig) -> str | None:
+    """The input besides tokens that ``cfg``'s model takes, which no
+    engine feeds: encoder ``frames`` (whisper-base) or ``patch_embeds``
+    (internvl2-26b); None for a token-only model."""
+    return ("frames" if cfg.encoder_blocks else
+            "patch_embeds" if cfg.num_patches else None)
+
+
+def refuse_front_ends(cfg: ModelConfig, engine: str):
+    """The engines feed tokens only: a model that also takes a front-end
+    input (``takes_front_end``) runs through ``models.model.forward``.
+    Refused at construction with the input named, where the JAX engines
+    fail at the first request with a ``KeyError`` (ROADMAP Queue 3)."""
+    need = takes_front_end(cfg)
+    if need:
+        raise ValueError(
+            f"{engine} serves token-only models; {cfg.name} also takes "
+            f"{need!r}, which no engine feeds (run it through "
+            "models.model.forward)")
+
+
 class Engine:
     """Single-replica serving engine for one model on one card."""
 
@@ -237,6 +258,7 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 256, seed: int = 0, device="cuda",
                  profile_hook=None):
+        refuse_front_ends(cfg, "Engine")
         self.device = resolve(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, engine "

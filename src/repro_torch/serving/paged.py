@@ -48,8 +48,8 @@ from repro_torch.models.layers import make_paged_attn_cache
 from repro_torch.models.model import forward
 from repro_torch.core.tree import LeafSpec, register_node
 from repro_torch.serving.engine import (Request, SlotArrays, SlotSnapshot,
-                                        _run_profiled, request_from_dict,
-                                        request_to_dict)
+                                        _run_profiled, refuse_front_ends,
+                                        request_from_dict, request_to_dict)
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.program_cache import get_programs
 from repro_torch.serving.sampling import rng_state, sample
@@ -152,9 +152,10 @@ class PagedEngine:
                  max_len: int = 256, seed: int = 0, device="cuda",
                  profile_hook=None, prefix_cache: bool = False,
                  shared_tenants: tuple = ()):
+        refuse_front_ends(cfg, "PagedEngine")
         if not (all(ls.mixer in ("attn", "local")
                     for b in cfg.blocks for ls in b.layers)
-                and not cfg.cross_attention and not cfg.encoder_blocks):
+                and not cfg.cross_attention):
             raise ValueError(
                 "PagedEngine requires an attention-only decoder model")
         if max_len % page_size:

@@ -65,7 +65,9 @@ FULL = {"gemma2-27b": (28.41, 28.41, 128, 2, 256000, 46, 376832),
         "stablelm-12b": (12.14, 12.14, 160, 4, 100352, 40, 204800),
         "deepseek-7b": (6.91, 6.91, 128, 1, 102400, 30, 491520),
         "granite-moe-1b-a400m": (1.34, 0.43, 64, 2, 50176, 24, 49152),
-        "deepseek-moe-16b": (16.38, 2.83, 128, 1, 102400, 28, 229376)}
+        "deepseek-moe-16b": (16.38, 2.83, 128, 1, 102400, 28, 229376),
+        "whisper-base": (0.11, 0.11, 64, 1, 52224, 6, 12288),
+        "internvl2-26b": (19.88, 19.88, 128, 6, 93184, 48, 196608)}
 
 _PAIRS = {}
 
@@ -102,12 +104,15 @@ def _tokens(B, S, seed=0):
 # -- configs ---------------------------------------------------------------------
 
 def test_the_port_registers_the_six_families():
+    """... and, since whisper-base and internvl2-26b, every config the
+    JAX package registers."""
+    from repro.configs import names as jnames
     assert set(FAMILIES) <= set(names())
-    assert set(names()) <= set(FAMILIES) | {"llama-1.5b", "rwkv6-7b",
-                                            "jamba-v0.1-52b"}
+    assert names() == jnames()
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", FAMILIES + ["whisper-base",
+                                             "internvl2-26b"])
 def test_config_parity_full_and_tiny(name):
     for jc, tc in ((jget(name), get(name)),
                    (jtiny(jget(name)), make_tiny(get(name))),
@@ -121,8 +126,13 @@ def test_config_parity_full_and_tiny(name):
             [(s.mixer, s.ffn, s.window) for s in jc.layer_specs()]
         for f in ("d_model", "num_heads", "num_kv_heads", "head_dim",
                   "d_ff", "vocab_size", "act", "qk_norm", "attn_softcap",
-                  "logit_softcap", "rope_theta", "tie_embeddings"):
+                  "logit_softcap", "rope_theta", "tie_embeddings",
+                  "decoder_len", "cross_attention", "num_patches"):
             assert getattr(tc, f) == getattr(jc, f), f
+        assert [(b.repeats, [(s.mixer, s.ffn) for s in b.layers])
+                for b in tc.encoder_blocks] == \
+            [(b.repeats, [(s.mixer, s.ffn) for s in b.layers])
+             for b in jc.encoder_blocks]
     cfg = get(name)
     params, active, D, G, vpad, layers, kv_bytes = FULL[name]
     assert round(cfg.param_count() / 1e9, 2) == params

@@ -46,6 +46,9 @@ missing = sorted({{"repro_torch.core.speculation", "repro_torch.core.validation"
                   "repro_torch.configs.deepseek_moe_16b",
                   "repro_torch.models.moe",
                   "repro_torch.configs.jamba_52b",
+                  "repro_torch.configs.whisper_base",
+                  "repro_torch.configs.internvl2_26b",
+                  "repro_torch.configs.inputs",
                   "repro_torch.models.mamba",
                   "repro_torch.core.migration", "repro_torch.core.workspace",
                   "repro_torch.core.channel", "repro_torch.core.attestation",

@@ -184,9 +184,13 @@ def test_fleet_socket_refuses_sim_only_flags(flag, capsys):
 @pytest.mark.parametrize("cli", [fleet_cli, serve_cli],
                          ids=["fleet", "serve"])
 def test_arch_the_port_lacks_is_a_usage_error(cli, capsys):
-    code, _, err = run(cli, TINY + ["--arch", "whisper-base"], capsys)
-    assert code == 2
-    assert "Queue 1 item 6" in err and "whisper-base" in err
+    """whisper-base and internvl2-26b are ported, but take frames or
+    patch embeddings, which no engine feeds: a usage error naming the
+    token-only rule."""
+    for arch in ("whisper-base", "internvl2-26b"):
+        code, _, err = run(cli, TINY + ["--arch", arch], capsys)
+        assert code == 2
+        assert "token-only" in err and arch in err
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

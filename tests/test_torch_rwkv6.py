@@ -247,11 +247,14 @@ def test_rwkv_cache_layout_and_masked_writes():
     for key in new:
         assert torch.equal(cache[key][[0, 2]], new[key][[0, 2]])
         assert torch.equal(cache[key][1], old[key][1])       # masked row
-    # a cross-attention cache (whisper-base's decoder) is a later family
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tlayers.make_layer_cache(tcfg.replace(cross_attention=True),
-                                 LayerSpec("attn", "dense"), 1, 8,
-                                 device="cpu")
+    # a cross-attention cache (whisper-base's decoder) sits beside the
+    # layer's own: cross_len empty slots
+    both = tlayers.make_layer_cache(tcfg.replace(cross_attention=True),
+                                    LayerSpec("attn", "dense"), 1, 8,
+                                    cross=True, cross_len=24, device="cpu")
+    assert set(both) == {"attn", "cross"}
+    assert both["cross"]["k"].shape[1] == 24
+    assert bool((both["cross"]["abs_pos"] == -1).all())
 
 
 # -- the dense Engine -------------------------------------------------------------
