@@ -7,7 +7,7 @@ Phases, each printing its own lines (any failure exits non-zero before
 the result line):
 
   1. device  : the card's name and power limit (nvidia-smi)
-  2. build   : the six CUDA kernels built from
+  2. build   : the seven CUDA kernels built from
                ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel
   3. kernels : each kernel against its plain PyTorch version on the card
                at the main path's shapes (paged decode also over pages
@@ -26,7 +26,15 @@ the result line):
                G 6, flash in full mode at whisper-base's encoder and
                cross-attention (D 64, Sq 416 over 1536 frames), dense
                decode over its cross cache (position 2^30), each case in
-               its kernel's row of the JSON line under "cases"
+               its kernel's row of the JSON line under "cases"; flash's
+               backward kernel (``flash_attention_bwd``, the port's own:
+               no Pallas counterpart) at llama-1.5b's, whisper-base's
+               encoder and cross, gemma3-4b's local (D 256), stablelm-12b's
+               (D 160) and gemma2-27b's softcapped layer shapes, each
+               gradient element within 4 bf16 ulps of the magnitude of the
+               terms it sums (``plain_backward(..., terms=True)``),
+               bit-equal on a second call, beside SDPA's backward, with the
+               forward's O bit-equal with and without its LSE output
   4. paths   : each path driven with every launch count set to 0 just
                before it and read just after; llama-1.5b at full width
                (bf16, random weights from seeds 0 and 1):
@@ -186,6 +194,25 @@ the result line):
                             2048 positions, the prefill domain); launches
                             exactly 48 flash a prefill or train forward,
                             48 dense decode a decode step
+               then training through ``training.train`` (remat on; every
+               other model freed):
+               train        rwkv6-7b's and jamba-v0.1-52b's train steps
+                            refused before anything moves; llama-1.5b at
+                            full width and depth (bf16, AdamW moments f32,
+                            seed 0), ``Pipeline`` batches of 4 x 1536
+                            tokens: ten steps, each finite, a checkpoint
+                            saved before step 5 (``checkpoint/disk.py``)
+                            and the run from it equal to the uninterrupted
+                            one bit for bit; microbatches=2 against 1; a
+                            step with every flash call held to its plain
+                            version, each remat recompute to its first
+                            pass bit for bit and every backward call to
+                            ``plain_backward``; a profiled step; launches
+                            exactly 48 flash and 24 backward a pass
+               train_whisper whisper-base at full width and depth, 4 x 1536
+                            frames and 416 tokens: two steps, the second
+                            checked as above; launches exactly 36 flash
+                            and 18 backward a step
   5. the kernels' JSON line, the card line, and the result line
 
 """
@@ -325,6 +352,7 @@ def wrappers() -> dict:
     from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import spec_verify as sv
     return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "paged_decode_attention": da.paged_decode_attention,
             "decode_attention": da.decode_attention,
             "spec_accept": sv.spec_accept,
@@ -494,6 +522,127 @@ def wide_flash(fa, gen) -> list:
                         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                         library_ms=lib_ms))
     return out
+
+
+# flash backward cases: (label, B, Sq, Skv, H, KV, D, causal, window,
+# softcap): llama-1.5b's layer, whisper-base's encoder and cross shape
+# (full mode, D 64), gemma3-4b's local layer (D 256, G 2), stablelm-12b's
+# (D 160, G 4) and gemma2-27b's softcapped one (D 128, G 2)
+BWD_CASES = (("llama-1.5b", 1, 1536, 1536, 16, 8, 128, True, 0, 0.0),
+             ("whisper-base encoder", 4, 1536, 1536, 8, 8, 64, False, 0, 0.0),
+             ("whisper-base cross", 4, 416, 1536, 8, 8, 64, False, 0, 0.0),
+             ("gemma3-4b local", 1, 1536, 1536, 8, 4, 256, True, 1024, 0.0),
+             ("stablelm-12b", 1, 1536, 1536, 32, 8, 160, True, 0, 0.0),
+             ("gemma2-27b softcap", 1, 1536, 1536, 32, 16, 128, True, 0,
+              50.0))
+# a gradient element's limit: 4 bf16 ulps (4 x 2^-7, relative) of the
+# magnitude of the terms it sums (``plain_backward(..., terms=True)``)
+BWD_ULPS = 4 * 2.0 ** -7
+
+
+def bwd_err(grads, ref, terms) -> tuple[float, float, float]:
+    """(max abs error, worst error over its element's limit, worst error
+    over the row rule's limit) of dQ, dK, dV against ``plain_backward``.
+    The row rule (``row_tol``: 4 ulps of the row's max, capped at 2e-2)
+    is reported, not held: a row whose terms cancel (a causal row 0,
+    whose dS is 0 in exact arithmetic) has no magnitude of its own, and
+    a gradient's rows pass the 2e-2 cap (|dV| to 9.5 at these shapes)."""
+    err = frac = row = 0.0
+    for g, r, t in zip(grads, ref, terms):
+        e = (g.float() - r.float()).abs()
+        err = max(err, float(e.max()))
+        frac = max(frac, float((e / (BWD_ULPS * t).clamp(min=1e-30)).max()))
+        row = max(row, float((e.amax((-2, -1)) / row_tol(r)).max()))
+    return err, frac, row
+
+
+def bwd_inputs(B, Sq, Skv, H, KV, D, gen):
+    q, do = (torch.randn((B, Sq, H, D), generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Skv, KV, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    return q, k, v, do
+
+
+def check_flash_bwd(fa, gen) -> dict:
+    """The backward kernel (``csrc/flash_attention_bwd.cu``) at
+    ``BWD_CASES``: the forward with and without its LSE output bit-equal
+    (and timed at llama's shape), dQ, dK, dV against ``plain_backward``
+    on the same inputs by ``bwd_err``'s element rule, bit-equal on a
+    second call, and timed beside the plain version, SDPA's backward (the
+    library yardstick, without the softcap SDPA lacks; a band mask for
+    the window) and the bound: 2.5x the forward's products, or the bytes
+    of q, k, v, O, dO, LSE read and dQ, dK, dV written."""
+    cases, row = [], None
+    for label, B, Sq, Skv, H, KV, D, causal, window, softcap in BWD_CASES:
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        q, k, v, do = bwd_inputs(B, Sq, Skv, H, KV, D, gen)
+        o, lse = fa.forward_with_lse(q, k, v, **kw)
+        if not torch.equal(o, fa.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash bwd {label}: O with the LSE output "
+                                 "differs from O without it")
+        grads = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        *ref, terms = fa.plain_backward(q, k, v, o, do, terms=True, **kw)
+        torch.cuda.synchronize()
+        err, frac, rowf = bwd_err(grads, ref, terms)
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        if not finite or frac > 1.0:
+            raise AssertionError(f"flash bwd {label}: max_abs_err {err} at "
+                                 f"{frac:.2f} x its element's limit")
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash bwd {label}: a second call gave "
+                                 "other bits")
+        del again, ref, terms
+        ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                    **kw))
+        plain_ms = time_ms(lambda: fa.plain_backward(q, k, v, o, do, **kw),
+                           iters=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        i, j = (torch.arange(n, device="cuda") for n in (Sq, Skv))
+        band = (j[None] <= i[:, None]) & (j[None] > i[:, None] - window)
+        ot = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band if window else None,
+            is_causal=causal and not window, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        del qt, kt, vt, ot, dot
+        pairs = band_pairs(Sq, window) if causal else Sq * Skv
+        flops = 2.5 * 4 * B * H * D * pairs
+        nbytes = 2 * B * D * (4 * Sq * H + 4 * Skv * KV) + 4 * B * H * Sq
+        bms, by = bound(flops, nbytes)
+        line = (f"flash bwd {label} B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
+                f"D={D} {kw}: max_abs_err={err:.3e} ({frac:.3f} x its "
+                f"element's limit; {rowf:.2f} x the row rule's), bit-equal "
+                f"on a second call; O bit-equal with and without the LSE | "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+                f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+        case = dict(case=label, B=B, Sq=Sq, Skv=Skv, H=H, KV=KV, D=D,
+                    causal=causal, window=window, softcap=softcap,
+                    max_abs_err=err, limit_frac=frac, row_rule_frac=rowf,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms)
+        if row is None:
+            # row 1's shape: the forward's time with and without the LSE
+            fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            lse_ms = time_ms(lambda: fa.forward_with_lse(q, k, v, **kw))
+            line += (f"\nflash bwd {label}: forward {fwd_ms:.4f} ms without "
+                     f"the LSE output, {lse_ms:.4f} ms with it")
+            row = dict(name="flash_attention_bwd", route="cuda",
+                       source="src/repro_torch/kernels/csrc/"
+                              "flash_attention_bwd.cu",
+                       replaces="src/repro/models/attention.py:97",
+                       **case, forward_ms=fwd_ms, forward_lse_ms=lse_ms)
+        else:
+            cases.append(case)
+        log(line)
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [c["max_abs_err"] for c in cases])
+    row["cases"] = cases
+    return row
 
 
 def _pools(P, ps, KV, D, gen):
@@ -3758,10 +3907,11 @@ class Shadowed(AttentionPatch):
         else:
             def plain(q, k, v, pt, pos, page_size, **kw):
                 return da.paged_plain(q, k, v, pt, pos, **kw)
-        ref = plain(q, k, v, *args, **kw).float()
-        terms = plain(q, k, v.abs(), *args, **kw).float()
-        frac = float(((out.float() - ref).abs()
-                      / (4 * 2.0 ** -7 * terms).clamp(min=1e-30)).max())
+        with torch.no_grad():    # a train step's inputs require grad
+            ref = plain(q, k, v, *args, **kw).float()
+            terms = plain(q, k, v.abs(), *args, **kw).float()
+            frac = float(((out.float() - ref).abs()
+                          / (4 * 2.0 ** -7 * terms).clamp(min=1e-30)).max())
         self.calls += 1
         self.worst = max(self.worst, frac)
         if not torch.isfinite(out).all() or frac > 1.0:
@@ -4601,6 +4751,347 @@ def run_internvl() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the train paths: llama-1.5b and whisper-base through the train step
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_RESTART = 10, 5
+TRAIN_ROWS, TRAIN_SEQ = 4, 1536       # llama-1.5b's batch: 4 x 1536 tokens
+WHISPER_TOKENS = 416                  # whisper-base: 416 tokens, 1536 frames
+
+
+class ShadowedTrain(Shadowed):
+    """``Shadowed`` over a train step.  Every flash forward call (the
+    first pass and each remat recompute) is held to its plain version as
+    ``Shadowed`` holds it, and each recompute to the first pass's output
+    on the same inputs, bit for bit; every backward call
+    (``flash_attention.backward_kernel``, which ``FlashAttention`` looks
+    up at each call) is held to ``plain_backward`` on its own inputs by
+    ``bwd_err``'s element rule.  ``bwd`` (backward calls), ``bwd_worst``,
+    ``recomputed`` (recomputes matched bit for bit) and ``pending``
+    (first-pass calls no recompute matched) are kept."""
+
+    def __init__(self):
+        super().__init__()
+        self.bwd, self.bwd_worst, self.recomputed = 0, 0.0, 0
+        self.pending = []       # (q, k, v, O) of first-pass flash calls
+
+    def call(self, name, orig, q, k, v, *args, **kw):
+        out = super().call(name, orig, q, k, v, *args, **kw)
+        if name not in FLASH_OPS:
+            return out
+        for i, (fq, fk, fv, fo) in enumerate(self.pending):
+            if (fq.shape == q.shape and fk.shape == k.shape
+                    and torch.equal(fq, q) and torch.equal(fk, k)
+                    and torch.equal(fv, v)):
+                if not torch.equal(fo, out):
+                    raise AssertionError(f"{name}: the remat recompute gave "
+                                         "other bits than the first pass")
+                self.recomputed += 1
+                del self.pending[i]
+                return out
+        self.pending.append(tuple(t.detach().clone() for t in (q, k, v, out)))
+        return out
+
+    def backward(self, q, k, v, o, do, lse, **kw):
+        grads = self.bwd_kernel(q, k, v, o, do, lse, **kw)
+        with torch.no_grad():
+            *ref, terms = self.fa.plain_backward(q, k, v, o, do, terms=True,
+                                                 **kw)
+            err, frac, _ = bwd_err(grads, ref, terms)
+        del ref, terms
+        self.bwd += 1
+        self.bwd_worst = max(self.bwd_worst, frac)
+        if not all(bool(torch.isfinite(g).all()) for g in grads) \
+                or frac > 1.0:
+            raise AssertionError(f"flash_attention_bwd in the model: "
+                                 f"{frac:.2f} x its limit against "
+                                 "plain_backward")
+        return grads
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        super().__enter__()
+        self.fa, self.bwd_kernel = fa, fa.backward_kernel
+        fa.backward_kernel = self.backward
+        return self
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self.fa.backward_kernel = self.bwd_kernel
+
+
+def refuse_untrained(tc):
+    """rwkv6-7b's and jamba-v0.1-52b's train steps refused with
+    ``ValueError`` before anything moves: no launch, no allocation (the
+    configs' weights are never made)."""
+    from repro_torch.configs import get
+    from repro_torch.training.train import train_step
+    zero_counts()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    said = []
+    for name in ("rwkv6-7b", "jamba-v0.1-52b"):
+        try:
+            train_step({}, {}, {}, cfg=get(name), tcfg=tc)
+        except ValueError as e:
+            said.append(f"{name}: {e}")
+        else:
+            raise AssertionError(f"{name}: a train step was not refused")
+    torch.cuda.synchronize()
+    if any(read_counts().values()) or \
+            torch.cuda.memory_allocated() != before:
+        raise AssertionError("a refused train step launched or allocated")
+    log(f"train: refused before anything moved (no launch, no allocation): "
+        f"{'; '.join(said)}")
+
+
+def train_batch(pipe, step: int) -> dict:
+    return {k: torch.from_numpy(v).to("cuda")
+            for k, v in pipe.batch(step).items()}
+
+
+def train_line(label, i, m, wall, tokens) -> dict:
+    vals = {k: float(m[k]) for k in ("loss", "ce", "aux", "grad_norm",
+                                      "lr")}
+    if not all(np.isfinite(list(vals.values()))):
+        raise AssertionError(f"{label} step {i}: not finite {vals}")
+    log(f"{label}: step {i} loss {vals['loss']:.4f} ce {vals['ce']:.4f} "
+        f"aux {vals['aux']:.4f} gnorm {vals['grad_norm']:.4f} lr "
+        f"{vals['lr']:.3e} wall {wall * 1e3:.1f} ms ({tokens / wall:.0f} "
+        f"tokens/s)")
+    return vals
+
+
+def timed_step(step, params, opt, batch):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    return params, opt, m, time.perf_counter() - t
+
+
+def check_train_launches(label, counts, layers, passes):
+    """Exactly ``layers`` flash launches a forward pass and as many remat
+    recomputes, ``layers`` backward launches a pass, no other kernel."""
+    want = {"flash_attention": 2 * layers * passes,
+            "flash_attention_bwd": layers * passes}
+    got = {k: n for k, n in counts.items() if n or k in want}
+    if got != want:
+        raise AssertionError(f"{label} launch counts {got}: need {want} "
+                             f"({layers} attention calls x {passes} forward "
+                             "passes)")
+    log(f"{label}: launches flash_attention={want['flash_attention']} "
+        f"({layers} x {passes} forward passes, each with its remat "
+        f"recompute), flash_attention_bwd={want['flash_attention_bwd']} "
+        f"({layers} x {passes}), no other kernel, exactly")
+
+
+def micro_diff(p1, p2, lr) -> float:
+    """The largest |p1 - p2| over its element's limit: 2 lr (two Adam
+    steps apart at most, |u| ~ 1 each) plus one bf16 ulp of the element
+    (the f32 update rounded back to bf16 may land on either side)."""
+    from repro_torch.core.tree import leaves
+    worst = 0.0
+    for a, b in zip(leaves(p1), leaves(p2)):
+        top = torch.maximum(a.float().abs(), b.float().abs()).clamp(
+            min=2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        worst = max(worst, float(((a.float() - b.float()).abs()
+                                  / (2 * lr + ulp)).max()))
+    return worst
+
+
+def run_train() -> dict:
+    """llama-1.5b at full width and depth (24 layers, 1.267B params bf16,
+    AdamW moments f32, seed 0) through ``training.train``'s step with
+    remat, on ``Pipeline(DataConfig(32000, 1536, 4))`` batches and
+    ``AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)``: ten steps,
+    each finite, a checkpoint of {params, opt} saved through
+    ``checkpoint/disk.py`` before step 5; the run again from it, bit for
+    bit; ``microbatches=2`` against 1 on one batch; one step with every
+    flash call held to its plain version and every backward call to
+    ``plain_backward`` (``ShadowedTrain``); a profiled step; the rwkv and
+    jamba refusals.  Launches exactly 48 flash (24 + 24 recomputed) and
+    24 backward a forward pass."""
+    import shutil
+
+    from repro_torch.checkpoint import disk
+    from repro_torch.configs import get
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models.init import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.training.train import (TrainConfig, make_train_step,
+                                            train_step)
+    release()
+    tc = TrainConfig(AdamWConfig(lr=1e-3, warmup_steps=2,
+                                 total_steps=TRAIN_STEPS))
+    refuse_untrained(tc)
+    cfg = get("llama-1.5b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                         device="cuda")
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    log(f"train: {cfg.name} at full width and depth ({cfg.num_layers} "
+        f"layers, {cfg.param_count() / 1e9:.3f}B params bf16 from seed "
+        f"{SEED}, AdamW moments f32; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), "
+        f"initialised in {time.perf_counter() - t0:.2f} s; batches "
+        f"{TRAIN_ROWS} x {TRAIN_SEQ} tokens from Pipeline, remat on ({gpu_line()})")
+    zero_counts()
+    B, S, L = TRAIN_ROWS, TRAIN_SEQ, cfg.num_layers
+    pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
+    step = make_train_step(cfg, tc)
+    ckdir = str(Path(__file__).resolve().parent / "build" / "train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    passes, walls = 0, []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_RESTART:
+            t = time.perf_counter()
+            disk.save(ckdir, i, {"params": params, "opt": opt})
+            nbytes = sum(a.numel() * a.element_size()
+                         for a in leaves({"p": params, "o": opt}))
+            log(f"train: checkpoint of step {i} saved: {nbytes} bytes in "
+                f"{time.perf_counter() - t:.2f} s (host seconds)")
+        params, opt, m, wall = timed_step(step, params, opt,
+                                          train_batch(pipe, i))
+        passes += 1
+        walls.append(wall)
+        train_line("train", i, m, wall, B * S)
+    t = time.perf_counter()
+    tree = disk.restore(ckdir, TRAIN_RESTART, {"params": params,
+                                               "opt": opt})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    p, o = tree["params"], tree["opt"]
+    del tree
+    for i in range(TRAIN_RESTART, TRAIN_STEPS):
+        p, o, _ = step(p, o, train_batch(pipe, i))
+        passes += 1
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        leaves({"p": params, "o": opt}), leaves({"p": p, "o": o})))
+    del p, o
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if not same:
+        raise AssertionError("train: the run from the step-5 checkpoint "
+                             "differs from the uninterrupted run")
+    log(f"train: restored step {TRAIN_RESTART} in {load_s:.2f} s and ran "
+        f"steps {TRAIN_RESTART}-{TRAIN_STEPS - 1} again: params and AdamW "
+        f"state equal the uninterrupted run's bit for bit")
+
+    batch = train_batch(pipe, TRAIN_STEPS)
+    p1, _, m1 = step(params, opt, batch)
+    p2, _, _ = train_step(params, opt, batch, cfg=cfg, tcfg=TrainConfig(
+        tc.optimizer, microbatches=2))
+    passes += 3
+    lr = float(m1["lr"])
+    frac = micro_diff(p1, p2, lr)
+    equal = sum(int((a == b).sum()) for a, b in zip(leaves(p1), leaves(p2)))
+    big = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(leaves(p1), leaves(p2)))
+    del p1, p2
+    if frac > 1.0:
+        raise AssertionError(f"train: microbatches=2 against 1 at {frac:.2f}"
+                             " x the limit")
+    log(f"train: microbatches=2 against 1 on batch {TRAIN_STEPS} (step "
+        f"{TRAIN_STEPS + 1}, lr {lr:.3e}): max |dp| {big:.3e}, worst "
+        f"element at {frac:.3f} x its limit (2 lr + one bf16 ulp of the "
+        f"element), {equal / cfg.param_count():.4f} of the params equal")
+
+    with ShadowedTrain() as shadow:
+        step(params, opt, train_batch(pipe, TRAIN_STEPS + 1))
+    passes += 1
+    if (shadow.bwd, shadow.flash, shadow.recomputed, len(shadow.pending)) \
+            != (L, 2 * L, L, 0):
+        raise AssertionError(f"train: shadowed step saw {shadow.bwd} "
+                             f"backward, {shadow.flash} flash calls, "
+                             f"{shadow.recomputed} recomputes matched, "
+                             f"{len(shadow.pending)} unmatched")
+    log(f"train: one step with every flash call held to its plain version "
+        f"({shadow.flash} calls, worst element at {shadow.worst:.3f} x its "
+        f"limit), each of the {shadow.recomputed} remat recomputes equal to "
+        f"its first pass bit for bit, and every backward call held to "
+        f"plain_backward ({shadow.bwd} calls, worst element at "
+        f"{shadow.bwd_worst:.3f} x its limit: 4 bf16 ulps of the terms it "
+        f"sums)")
+
+    batch = train_batch(pipe, TRAIN_STEPS + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, busy = profiled(lambda: step(params, opt, batch),
+                          f"train step ({B} x {S} tokens)", 1)
+    passes += 1
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls)[len(walls) // 2]
+    log(f"train: step wall median {med * 1e3:.1f} ms over {len(walls)} "
+        f"steps ({B * S / med:.0f} tokens/s); profiled {wall:.1f} ms wall, "
+        f"{busy:.1f} ms busy ({100 - 100 * busy / wall:.1f}% idle), "
+        f"{B * S / wall * 1e3:.0f} tokens/s, peak {peak / 1e9:.1f} GB "
+        f"({gpu_line()})")
+    counts = read_counts()
+    check_train_launches("train", counts, L, passes)
+    del params, opt, batch
+    release()
+    return counts
+
+
+def run_train_whisper() -> dict:
+    """whisper-base at full width and depth (6 encoder + 6 decoder
+    layers, seed 0) through the train step: 4 rows of 1536 frames
+    (``configs.inputs.batch_specs``) and 416 tokens (``Pipeline``), two
+    steps, the second with every flash call and backward call checked
+    (``ShadowedTrain``): the encoder's full mode and the cross shape (Sq
+    416 over 1536) at D 64.  Launches exactly 36 flash (18 + 18
+    recomputed) and 18 backward a step."""
+    from repro_torch.configs import ShapeSpec, get
+    from repro_torch.configs.inputs import batch_specs
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models.init import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.training.train import TrainConfig, make_train_step
+    release()
+    cfg = get("whisper-base")
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                         device="cuda")
+    opt = init_opt_state(params)
+    zero_counts()
+    step = make_train_step(cfg, TrainConfig(AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)))
+    frames = batch_specs(cfg, ShapeSpec("whisper", 1536, TRAIN_ROWS,
+                                        "prefill"), concrete=True,
+                         seed=SEED, device="cuda")["frames"]
+    pipe = Pipeline(DataConfig(cfg.vocab_size, WHISPER_TOKENS, TRAIN_ROWS))
+    layers = FrontTally("whisper", cfg).per_full
+    for i in range(2):
+        batch = {"frames": frames, **train_batch(pipe, i)}
+        if i == 0:
+            params, opt, m, wall = timed_step(step, params, opt, batch)
+        else:
+            with ShadowedTrain() as shadow:
+                params, opt, m, wall = timed_step(step, params, opt, batch)
+        train_line("train_whisper", i, m, wall,
+                   TRAIN_ROWS * (WHISPER_TOKENS + frames.shape[1]))
+    if (shadow.bwd, shadow.flash, shadow.recomputed, len(shadow.pending)) \
+            != (layers, 2 * layers, layers, 0):
+        raise AssertionError(f"train_whisper: shadowed step saw {shadow.bwd}"
+                             f" backward, {shadow.flash} flash calls, "
+                             f"{shadow.recomputed} recomputes matched, "
+                             f"{len(shadow.pending)} unmatched")
+    log(f"train_whisper: {cfg.name} ({TRAIN_ROWS} x 1536 frames, "
+        f"{WHISPER_TOKENS} tokens): the second step's {shadow.flash} flash "
+        f"calls (encoder full mode, causal, cross Sq {WHISPER_TOKENS} over "
+        f"1536) at worst {shadow.worst:.3f} x their limit, "
+        f"{shadow.recomputed} recomputes bit for bit, {shadow.bwd} backward "
+        f"calls at worst {shadow.bwd_worst:.3f} x theirs")
+    counts = read_counts()
+    check_train_launches("train_whisper", counts, layers, 2)
+    del params, opt
+    release()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4634,12 +5125,13 @@ def main() -> int:
     t0 = time.perf_counter()
     zero_counts()
     rows = [
-        check_flash(fa, gen), check_paged(da, gen), check_decode(da, gen),
+        check_flash(fa, gen), check_flash_bwd(fa, gen), check_paged(da, gen),
+        check_decode(da, gen),
         check_spec(sv, gen), check_rwkv6(rs, gen), check_int8(im, gen)]
     # the other models' shapes (head dims 160 and 256, G 4 and 6, full
     # mode, D 64, a cross cache): each case in its kernel's row
-    for row, wide in zip(rows, (wide_flash(fa, gen), wide_paged(da, gen),
-                                wide_decode(da, gen))):
+    for row, wide in zip((rows[0], *rows[2:]), (
+            wide_flash(fa, gen), wide_paged(da, gen), wide_decode(da, gen))):
         row["cases"] = wide
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [c["max_abs_err"] for c in wide])
@@ -4706,6 +5198,8 @@ def main() -> int:
     drive("jamba", run_jamba)
     drive("whisper", run_whisper)
     drive("internvl", run_internvl)
+    drive("train", run_train)
+    drive("train_whisper", run_train_whisper)
     log(f"paths: wall seconds {wall}")
     for row in rows:
         name = row["name"]

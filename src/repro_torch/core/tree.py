@@ -138,3 +138,13 @@ def leaves(tree) -> list:
 def tree_map(fn, tree):
     """The tree with every leaf replaced by ``fn(leaf)``."""
     return map_with_path(lambda _, leaf: fn(leaf), tree)
+
+
+def unflatten_like(tree, values) -> object:
+    """``tree``'s structure with its leaves replaced by ``values``, given
+    in ``leaves`` order (the port's ``jax.tree.unflatten``)."""
+    paths = [path for path, _ in leaves_with_path(tree)]
+    if len(paths) != len(values):
+        raise ValueError(f"{len(values)} values for {len(paths)} leaves")
+    by_path = dict(zip(paths, values))
+    return map_with_path(lambda path, _: by_path[path], tree)

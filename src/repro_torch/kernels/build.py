@@ -23,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("flash_attention", "paged_decode_attention", "decode_attention",
-           "spec_verify", "rwkv6_scan", "int8_matmul")
+KERNELS = ("flash_attention", "flash_attention_bwd", "paged_decode_attention",
+           "decode_attention", "spec_verify", "rwkv6_scan", "int8_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,6 +109,21 @@ def count_launch(fn, route: str | None = None) -> None:
         fn.launches += 1
         if route is not None:
             fn.routes[route] += 1
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ``ValueError`` where autograd would need the gradient of a
+    kernel that has none (grad mode on and an input that requires it):
+    its output would be cut off from the graph with no error.  Flash
+    attention has its backward (``flash_attention.FlashAttention``); the
+    other kernels' backwards are ROADMAP Queue 1 work."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{kernel}: the CUDA kernel has no backward, and autograd needs "
+            "the gradient of its inputs here (ROADMAP Queue 1: training "
+            "beyond flash attention); run it under torch.no_grad() or on "
+            "inputs that do not require grad")
 
 
 def on_device(t):

@@ -32,6 +32,10 @@
 //     the keys pay for the mask;
 //   * deterministic: each (batch, head, query tile) is one CTA, with no
 //     split of a row's keys across CTAs and no atomics.
+// With a non-null `lse` the kernel also writes each row's log-sum-exp,
+// m + log(l) in the scaled (and softcapped) score domain, (B, H, Sq) fp32,
+// for the backward kernel (flash_attention_bwd.cu); the store is one branch
+// after O's, so O is the same bits with or without it.
 // P is rounded to bf16 before P V, as the reference rounds it to v.dtype;
 // l sums the unrounded p.  The softmax runs in the log2 domain (ex2).
 // Head dims 160 (stablelm-12b) and 256 (gemma3-4b) run the same design
@@ -309,8 +313,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap,
-          __nv_bfloat16* __restrict__ o, int B, int Sq, int Skv, int H, int G,
-          int causal, int window, float softcap, float scale) {
+          __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
+          int Sq, int Skv, int H, int G, int causal, int window, float softcap,
+          float scale) {
   using L = Smem<D>;
   constexpr int BK = L::BK, STAGES = L::STAGES, DP = Tile<D>::DP;
   extern __shared__ uint8_t smem_raw[];
@@ -541,6 +546,11 @@ flash_fwd(const __grid_constant__ CUtensorMap qmap,
     for (int i2 = 0; i2 < 2; ++i2) {
       l[i2] += __shfl_xor_sync(0xffffffffu, l[i2], 1);
       l[i2] += __shfl_xor_sync(0xffffffffu, l[i2], 2);
+      const int r = i2 ? r1 : r0;
+      if (lse != nullptr && t == 0 && r < Sq)  // m in the natural domain
+        lse[(static_cast<long long>(b) * H + h) * Sq + r] =
+            m[i2] == NEG_INF ? -NEG_INF
+                             : m[i2] * (sl / LOG2E) + logf(fmaxf(l[i2], 1e-30f));
       l[i2] = 1.f / fmaxf(l[i2], 1e-30f);
     }
     // o is a fresh contiguous (B, Sq, H, D) tensor; columns past D (the
@@ -608,8 +618,8 @@ bool encode(CUtensorMap* map, const void* ptr, int D, int S, int heads,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, const long long* st, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KV, const long long* st, int causal,
            int window, float softcap, float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!encode(&qm, q, D, Sq, H, B, st, BQ) ||
@@ -626,7 +636,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   }
   const int n_qt = (Sq + BQ - 1) / BQ;
   flash_fwd<D><<<n_qt * B * H, THREADS, Smem<D>::ALLOC, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), B, Sq, Skv, H, H / KV,
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, Sq, Skv, H, H / KV,
       causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -634,6 +644,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // strides: 9 element strides (batch, seq, head) of q, k, v in that order.
+// lse: null, or a contiguous (B, H, Sq) fp32 tensor for the rows' LSE.
 // Returns the cudaError_t of the launch (0 = cudaSuccess); -1 for a head
 // dim this file was not built for, -2 when a tensor map cannot be encoded
 // (no driver entry point, or strides TMA does not take).
@@ -642,19 +653,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Skv, int H, int KV, int D,
                                       const long long* strides, int causal,
                                       int window, float softcap, float scale,
-                                      void* stream) {
+                                      void* stream, void* lse) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   if (D == 256)
-    return launch<256>(q, k, v, o, B, Sq, Skv, H, KV, strides, causal,
+    return launch<256>(q, k, v, o, ls, B, Sq, Skv, H, KV, strides, causal,
                        window, softcap, scale, s);
   if (D == 160)
-    return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, strides, causal,
+    return launch<160>(q, k, v, o, ls, B, Sq, Skv, H, KV, strides, causal,
                        window, softcap, scale, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, strides, causal,
+    return launch<128>(q, k, v, o, ls, B, Sq, Skv, H, KV, strides, causal,
                        window, softcap, scale, s);
   if (D == 64)
-    return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, strides, causal, window,
-                      softcap, scale, s);
+    return launch<64>(q, k, v, o, ls, B, Sq, Skv, H, KV, strides, causal,
+                      window, softcap, scale, s);
   return -1;
 }

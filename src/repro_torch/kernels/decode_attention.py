@@ -105,6 +105,7 @@ def decode_attention(q, k_cache, v_cache, abs_pos, positions, *, window=0,
     (B,) int32.  Returns (B,1,H,D); a row with no valid slot is exactly 0.
     Same signature as the Pallas kernel.  One call launches the split's
     three kernels (scores, P V, combine); it counts once."""
+    build.refuse_grad(NAME, q, k_cache, v_cache)
     _check(q, k_cache, v_cache, abs_pos, positions)
     fn = _bind(NAME, "decode_attention_launch", 7, 7)
     B, _, H, D = q.shape
@@ -217,6 +218,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *,
     page_table: (B, NP) int32 (-1 = unmapped); positions: (B,) int32.
     Returns (B,1,H,D); a row with no live page is exactly 0.  One call
     launches the split over pages and its combine; it counts once."""
+    build.refuse_grad(PAGED_NAME, q, k_pool, v_pool)
     _check_paged(q, k_pool, v_pool, page_table, positions)
     fn = _bind(PAGED_NAME, "paged_decode_attention_launch", 7, 9)
     B, _, H, D = q.shape

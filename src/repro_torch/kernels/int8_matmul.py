@@ -111,6 +111,7 @@ def int8_matmul(x, w_q, w_scale):
     """x: (..., K) bf16/f32; w_q: (K, N) int8; w_scale: (N,) f32, on the
     card.  Returns (..., N) in x's dtype.  Same signature as the Pallas
     kernel (its block sizes are the kernel's own here)."""
+    build.refuse_grad(NAME, x, w_q, w_scale)
     _check(x, w_q, w_scale)
     fn = _bind()
     K, N = w_q.shape

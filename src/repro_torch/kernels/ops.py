@@ -10,6 +10,14 @@
 ``spec_accept`` / ``spec_verify`` dispatch on the device of
 ``target_probs``, ``rwkv6_scan`` on ``r``'s, ``int8_matmul`` on ``x``'s.
 
+Under autograd (grad mode on and an input that requires grad) the three
+attention ops that reach flash go through ``FlashAttention`` (the
+forward kernel with its LSE, the hand-written backward kernel); every
+other kernel wrapper raises ``ValueError`` naming itself and ROADMAP
+Queue 1 (``build.refuse_grad``): a kernel's output is never cut off from
+the graph, and a card never falls back to a plain version.  On the CPU
+the plain versions are differentiated as any torch code.
+
 Prefill attention keeps the reference's prompt-length domain: the JAX
 blockwise path and the Pallas kernel both require every sequence length
 S to satisfy ``S % min(512, S) == 0`` (``models/attention.py:108-109``,

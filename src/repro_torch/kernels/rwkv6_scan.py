@@ -111,6 +111,7 @@ def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
     u: (H,D); state0: (B,H,D,D) fp32.  Returns (out (B,T,H,D) fp32,
     final state (B,H,D,D)).  Same signature as the Pallas kernel; T must
     be a multiple of ``min(chunk, T)``."""
+    build.refuse_grad(NAME, r, k, v, w, u, state0)
     chunk = _chunk(r.shape[1], chunk)
     _check(r, k, v, w, u, state0, chunk)
     fn = _bind()

@@ -93,6 +93,7 @@ def spec_accept(draft_tokens, draft_probs, target_probs, u):
     """draft_tokens: (g,) int32; draft_probs: (g, V) float32;
     target_probs: (g+1, V) float32; u: (g,) float32.  Returns (n (),
     int32; dist (V,) float32).  Same signature as the Pallas kernel."""
+    build.refuse_grad("spec_accept", draft_probs, target_probs, u)
     _check(draft_tokens, draft_probs, target_probs, u)
     fn = _bind()
     g, V = draft_probs.shape

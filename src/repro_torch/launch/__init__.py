@@ -1,3 +1,4 @@
 """The port's entry points (the JAX package's ``launch``): ``serve``, one
-engine; ``fleet``, a heterogeneous fleet in sync or service mode.  Both
-run on the card unless ``--device cpu`` asks for the CPU."""
+engine; ``fleet``, a heterogeneous fleet in sync or service mode;
+``train``, training with checkpoints and restart.  Each runs on the card
+unless ``--device cpu`` asks for the CPU."""

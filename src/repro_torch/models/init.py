@@ -17,7 +17,10 @@ from repro_torch.core.tree import LeafSpec, from_host, host_array, leaves
 from repro_torch.device import resolve
 from repro_torch.models.schema import ParamDef, model_schema, tree_map
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# float64 runs a model as a yardstick for f32 rounding (the tests); the
+# norms, attention scores and router keep their own f32, as in JAX
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:

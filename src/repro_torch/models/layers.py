@@ -319,8 +319,9 @@ def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
     mode with ``causal=False``), then a decoder's cross-attention block
     where it has one (with ``enc_out``, or in decode over its cross
     cache), then the dense gated MLP or the MoE FFN; or the rwkv time
-    mix + the rwkv channel mix.  Returns x; caches are written in place.
-    The MoE's load-balancing loss is dropped, as the engines drop it."""
+    mix + the rwkv channel mix.  Returns (x, aux): ``aux`` is the MoE
+    FFN's load-balancing loss (f32 scalar), None for a layer without
+    one; caches are written in place."""
     if lspec.mixer not in ("attn", "local", "rwkv", "mamba") \
             or lspec.ffn not in ("dense", "moe", "none"):
         raise NotImplementedError(
@@ -328,7 +329,7 @@ def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
             "model families)")
     if lspec.mixer == "rwkv":
         return _rwkv_layer(p, x, cfg=cfg, lspec=lspec, mode=mode,
-                           cache=(cache or {}).get("rwkv"))
+                           cache=(cache or {}).get("rwkv")), None
     if lspec.mixer == "mamba":
         x = _mamba_mixer(p, x, cfg=cfg, mode=mode,
                          cache=(cache or {}).get("mamba"))
@@ -345,13 +346,15 @@ def layer_apply(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,
                                 positions=positions,
                                 cache=(cache or {}).get("cross"),
                                 kv_x=enc_out, cross=True)
+    aux = None
     if lspec.ffn == "dense":
         h = rmsnorm(x, p["mlp"]["ln"]["scale"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg)
     elif lspec.ffn == "moe":
         h = rmsnorm(x, p["moe"]["ln"]["scale"], cfg.norm_eps)
-        x = x + moe_mod.moe_apply(p["moe"], h, cfg)[0]
-    return x
+        out, aux = moe_mod.moe_apply(p["moe"], h, cfg)
+        x = x + out
+    return x, aux
 
 
 def _rwkv_layer(p, x, *, cfg: ModelConfig, lspec: LayerSpec, mode: str,

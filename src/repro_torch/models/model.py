@@ -6,7 +6,9 @@ package, and a Python loop runs groups x repeats x layers where JAX uses
 ``lax.scan``; a hybrid block (jamba's) runs its mamba, attention and MoE
 layers within each repeat.  One ``forward`` serves all three modes:
 
-  train   : full sequence, no cache
+  train   : full sequence, no cache (``train_forward`` also returns the
+            MoE layers' load-balancing loss, and recomputes each repeat
+            of a block in the backward, as the JAX package remats it)
   prefill : full sequence, writes the row's KV cache or pages, or its
             recurrent state (rwkv and mamba layers, starting from the
             state the cache holds)
@@ -21,6 +23,7 @@ VLM (internvl2) prepends projected stub patch embeddings.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.init import torch_dtype
@@ -52,19 +55,45 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
 
 
 def _run_groups(params_blocks, x, *, cfg: ModelConfig, blocks, mode,
-                positions, caches, enc_out=None, causal=True):
+                positions, caches, enc_out=None, causal=True, remat=False):
+    """Returns (x, aux).  ``aux`` sums the MoE layers' load-balancing
+    losses in the JAX order (each repeat's layers, then the group's
+    repeats, then the groups) in train mode; None for a model without
+    MoE layers, and outside train mode (the engines drop it).
+    ``remat`` runs each repeat of a block under
+    ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` with
+    ``nothing_saveable`` over the scan body): its activations are
+    recomputed in the backward, not kept."""
+    aux_total = None
     for gi, block in enumerate(blocks):
         p_group = params_blocks[gi]
         c_group = caches[gi] if caches is not None else None
-        for r in range(block.repeats):
+
+        def body(x, r, block=block, p_group=p_group, c_group=c_group):
+            aux = None
             for li, lspec in enumerate(block.layers):
                 p_r = tree_map(lambda a: a[r], p_group[li])
                 c_r = (tree_map(lambda a: a[r], c_group[li])
                        if c_group is not None else None)
-                x = layer_apply(p_r, x, cfg=cfg, lspec=lspec, mode=mode,
-                                positions=positions, cache=c_r,
-                                enc_out=enc_out, causal=causal)
-    return x
+                x, a = layer_apply(p_r, x, cfg=cfg, lspec=lspec, mode=mode,
+                                   positions=positions, cache=c_r,
+                                   enc_out=enc_out, causal=causal)
+                if a is not None and mode == "train":
+                    aux = a if aux is None else aux + a
+            return x, aux
+
+        auxes = []
+        for r in range(block.repeats):
+            if remat:
+                x, aux = checkpoint(body, x, r, use_reentrant=False)
+            else:
+                x, aux = body(x, r)
+            if aux is not None:
+                auxes.append(aux)
+        if auxes:
+            s = torch.stack(auxes).sum()
+            aux_total = s if aux_total is None else aux_total + s
+    return x, aux_total
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
@@ -94,8 +123,29 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
     stacked over repeats);
     it is written in place, where the JAX ``forward`` returns new caches
     and an aux loss (the MoE layers' load-balancing loss, which the
-    engines drop, as the JAX engines do).
+    engines drop, as the JAX engines do; ``train_forward`` returns it).
     """
+    return _forward(params, batch, cfg=cfg, mode=mode, positions=positions,
+                    caches=caches)[0]
+
+
+def train_forward(params, batch, *, cfg: ModelConfig, remat=True):
+    """The train-mode forward of the JAX ``forward(..., mode="train",
+    remat=)``: (logits (B, S, V_pad), aux), where ``aux`` is the MoE
+    layers' load-balancing loss summed over the decoder's layers (f32
+    0 for a model without MoE layers; an encoder's is dropped, as JAX
+    drops it).  ``remat`` recomputes each repeat of every block, the
+    encoder's too, in the backward.  The encoder run and the patch prefix
+    are ``forward``'s."""
+    logits, aux = _forward(params, batch, cfg=cfg, mode="train",
+                           remat=remat)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
+
+
+def _forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
+             caches=None, remat=False):
     tokens = batch["tokens"]
     B = tokens.shape[0]
     dtype = torch_dtype(cfg.dtype)
@@ -110,7 +160,8 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
         enc_p = params["encoder"]
         enc_out = _run_groups(enc_p["blocks"], frames, cfg=cfg,
                               blocks=cfg.encoder_blocks, mode="train",
-                              positions=fpos, caches=None, causal=False)
+                              positions=fpos, caches=None, causal=False,
+                              remat=remat)[0]
         enc_out = rmsnorm(enc_out, enc_p["final_norm"]["scale"],
                           cfg.norm_eps)
     elif enc_out is not None and mode == "prefill" and caches is not None:
@@ -125,14 +176,14 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str, positions=None,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
-    x = _run_groups(params["blocks"], x, cfg=cfg, blocks=cfg.blocks,
-                    mode=mode, positions=positions, caches=caches,
-                    enc_out=enc_out)
+    x, aux = _run_groups(params["blocks"], x, cfg=cfg, blocks=cfg.blocks,
+                         mode=mode, positions=positions, caches=caches,
+                         enc_out=enc_out, remat=remat)
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = lm_logits(params, x, cfg)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return logits, aux
 
 
 def _check_cross(caches, frames: int):

@@ -1,4 +1,4 @@
-"""Optimizer-side helpers of the port (the JAX package's ``optim``).
-Only the int8 quantizer of ``compression`` is here so far: the quality
-tiers' int8 weights use it; the gradient half waits for training
-(ROADMAP Queue 1 item 8)."""
+"""Optimizer-side modules of the port (the JAX package's ``optim``):
+``adamw`` (AdamW with a cosine schedule) and ``compression`` (the int8
+quantizer the quality tiers use, and error-feedback gradient
+compression for a group of one)."""

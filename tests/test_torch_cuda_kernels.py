@@ -1477,3 +1477,149 @@ def test_tiny_front_end_models_on_the_card(cuda, name, monkeypatch):
     assert len(errs) == per_prefill + 2 * per_step
     assert max(errs) <= 1.0, errs
     assert bool(torch.isfinite(torch.stack(out)).all())
+
+
+# ---------------------------------------------------------------------------
+# flash attention's backward kernel and training on the card
+# ---------------------------------------------------------------------------
+
+BWD_MODES = {"causal": dict(causal=True),
+             "window": dict(causal=True, window=100),
+             "full": dict(causal=False),
+             "softcap": dict(causal=True, softcap=30.0)}
+
+
+def _bwd_case(cuda, B, Sq, Skv, H, KV, D, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    q, do = (torch.randn((B, Sq, H, D), generator=gen, device=cuda,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Skv, KV, D), generator=gen, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    return q, k, v, do
+
+
+def _hold_grads(grads, q, k, v, o, do, kw):
+    """Each element of dQ, dK, dV within 4 bf16 ulps of the magnitude of
+    the terms it sums (``plain_backward(..., terms=True)``)."""
+    *ref, terms = fa.plain_backward(q, k, v, o, do, terms=True, **kw)
+    for g, r, t in zip(grads, ref, terms):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
+        e = (g.float() - r.float()).abs()
+        assert bool((e <= 4 * 2.0 ** -7 * t).all()), float(
+            (e / (4 * 2.0 ** -7 * t).clamp(min=1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+@pytest.mark.parametrize("D,H,KV", [(64, 8, 8), (128, 16, 8), (160, 8, 2),
+                                    (256, 8, 4), (64, 16, 2)])
+def test_flash_backward_matches_plain(cuda, mode, D, H, KV):
+    """dQ, dK, dV at every head dim and mode (G 1, 2, 4 and 8), across
+    ragged tile edges, bit-equal on a second call; the forward's O
+    bit-equal with and without its LSE output."""
+    kw = BWD_MODES[mode]
+    Skv = 333 if mode == "full" else 200
+    q, k, v, do = _bwd_case(cuda, 2, 200, Skv, H, KV, D, D)
+    o, lse = fa.forward_with_lse(q, k, v, **kw)
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    assert lse.shape == (2, H, 200) and lse.dtype == torch.float32
+    grads = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    _hold_grads(grads, q, k, v, o, do, kw)
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_goes_through_the_backward_kernel(cuda):
+    """With grad, ``ops.attention_*`` go through ``FlashAttention``: the
+    forward kernel with its LSE, the backward kernel for the gradients
+    (one launch each), never the plain version; a non-contiguous dO is
+    made contiguous first."""
+    q, k, v, do = _bwd_case(cuda, 1, 256, 256, 8, 2, 128, 5)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    f0, b0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    o = ops.attention_windowed(qq, kk, vv, window=64)
+    assert o.grad_fn is not None
+    dot = do.transpose(0, 1).contiguous().transpose(0, 1)
+    o.backward(dot)
+    assert fa.flash_attention.launches - f0 == 1
+    assert fa.flash_attention_bwd.launches - b0 == 1
+    kw = dict(causal=True, window=64)
+    want = fa.flash_attention_bwd(q, k, v, o.detach(), do,
+                                  fa.forward_with_lse(q, k, v, **kw)[1], **kw)
+    assert all(torch.equal(a, b) for a, b in
+               zip((qq.grad, kk.grad, vv.grad), want))
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_grad_on_the_card(cuda):
+    """decode, paged decode, spec_accept, rwkv6_scan and int8_matmul raise
+    under grad with an input that requires it; never a silent detach."""
+    g = lambda *s: torch.randn(*s, device=cuda).requires_grad_()  # noqa
+    i32 = lambda *s: torch.zeros(s, device=cuda, dtype=torch.int32)  # noqa
+    bf = lambda *s: g(*s).bfloat16().detach().requires_grad_()  # noqa
+    calls = {
+        "decode_attention": lambda: ops.decode_attention(
+            bf(1, 1, 2, 64), bf(1, 8, 2, 64), bf(1, 8, 2, 64), i32(1, 8),
+            i32(1)),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            bf(1, 1, 2, 64), bf(2, 16, 2, 64), bf(2, 16, 2, 64), i32(1, 2),
+            i32(1), page_size=16),
+        "spec_accept": lambda: ops.spec_accept(
+            i32(2), g(2, 32), g(3, 32), torch.rand(2, device=cuda)),
+        "rwkv6_scan": lambda: ops.rwkv6_scan(
+            g(1, 8, 2, 16), g(1, 8, 2, 16), g(1, 8, 2, 16),
+            torch.rand(1, 8, 2, 16, device=cuda), g(2, 16),
+            torch.zeros(1, 2, 16, 16, device=cuda)),
+        "int8_matmul": lambda: ops.int8_matmul(
+            bf(4, 64), torch.zeros((64, 32), device=cuda, dtype=torch.int8),
+            torch.ones(32, device=cuda)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=f"^{name}: the CUDA kernel has "
+                                             "no backward"):
+            call()
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card_matches_the_plain_versions(cuda):
+    """A narrow llama's train step on the card (flash and its backward
+    kernel) against the same step under ``ops.set_backend("ref")``: the
+    loss within 1e-3 relative, every param within 2 lr plus one bf16 ulp
+    of the element (Adam's first step sends g / |g|), most of them
+    equal; launches exactly 2 x layers flash (remat) and layers
+    backward."""
+    from repro_torch.configs import get
+    from repro_torch.configs.tiny import make_tiny
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models.init import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.training.train import TrainConfig, train_step
+    cfg = make_tiny(get("llama-1.5b"), d_model=256)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    batch = {k: torch.from_numpy(a).to(cuda) for k, a in Pipeline(
+        DataConfig(cfg.vocab_size, 128, 2)).batch(0).items()}
+    tc = TrainConfig(AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10))
+    f0, b0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    pk, _, mk = train_step(params, init_opt_state(params), batch, cfg=cfg,
+                           tcfg=tc)
+    assert fa.flash_attention.launches - f0 == 2 * cfg.num_layers
+    assert fa.flash_attention_bwd.launches - b0 == cfg.num_layers
+    ops.set_backend("ref")
+    try:
+        pr, _, mr = train_step(params, init_opt_state(params), batch,
+                               cfg=cfg, tcfg=tc)
+    finally:
+        ops.set_backend(None)
+    assert abs(float(mk["loss"]) - float(mr["loss"])) <= 1e-3 * abs(
+        float(mr["loss"]))
+    lr, same, total = float(mk["lr"]), 0, 0
+    for a, b in zip(leaves(pk), leaves(pr)):
+        top = torch.maximum(a.float().abs(), b.float().abs()).clamp(
+            min=2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        assert bool(((a.float() - b.float()).abs() <= 2 * lr + ulp).all())
+        same += int((a == b).sum())
+        total += a.numel()
+    assert same / total > 0.5

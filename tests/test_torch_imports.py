@@ -65,7 +65,12 @@ missing = sorted({{"repro_torch.core.speculation", "repro_torch.core.validation"
                   "repro_torch.optim", "repro_torch.optim.compression",
                   "repro_torch.launch", "repro_torch.launch.common",
                   "repro_torch.launch.serve",
-                  "repro_torch.launch.fleet"}} - set(names))
+                  "repro_torch.launch.fleet",
+                  "repro_torch.launch.train", "repro_torch.training",
+                  "repro_torch.training.train", "repro_torch.optim.adamw",
+                  "repro_torch.data", "repro_torch.data.pipeline",
+                  "repro_torch.checkpoint",
+                  "repro_torch.checkpoint.disk"}} - set(names))
 assert not missing, missing
 print(len(names), bad)
 """

@@ -150,8 +150,8 @@ def chain_errors(seed=5, tokens_seed=1, T=64):
                 jax.tree.map(lambda a: a[r], jp["blocks"][0][li]), xj,
                 cfg=jcfg, lspec=ls, mode="train", positions=pos)
             local.append(rel(oj, tlayers.layer_apply(
-                tl, torch.from_numpy(np.array(xj)), **kw)))
-            xt = tlayers.layer_apply(tl, xt, **kw)
+                tl, torch.from_numpy(np.array(xj)), **kw)[0]))
+            xt, _ = tlayers.layer_apply(tl, xt, **kw)
             chained.append(rel(oj, xt))
             xj = oj
     tok = tokens.astype(np.int32)
@@ -190,7 +190,7 @@ def test_every_layer_matches_jax_on_its_own_inputs():
             out, _, _ = jlayers.layer_apply(
                 jax.tree.map(lambda a: a[r], jp["blocks"][0][li]), x,
                 cfg=jcfg, lspec=ls, mode="train", positions=pos)
-            got = tlayers.layer_apply(
+            got, _ = tlayers.layer_apply(
                 tree_map(lambda a: a[r], tp["blocks"][0][li]),
                 torch.from_numpy(np.array(x)), cfg=tcfg,
                 lspec=tcfg.blocks[0].layers[li], mode="train",

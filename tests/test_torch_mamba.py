@@ -286,7 +286,7 @@ def port_input_errors(seed, tokens_seed=1, T=64) -> list:
                 jax.tree.map(lambda a: a[r], jp["blocks"][0][li]),
                 jnp.asarray(xt.numpy()), cfg=jcfg, lspec=ls, mode="train",
                 positions=pos)[0]
-            xt = tlayers.layer_apply(
+            xt, _ = tlayers.layer_apply(
                 tree_map(lambda a: a[r], tp["blocks"][0][li]), xt, cfg=tcfg,
                 lspec=tcfg.blocks[0].layers[li], mode="train",
                 positions=tpos)

@@ -174,9 +174,9 @@ def test_a_precomputed_encoder_output_is_honoured(run):
     frames = torch.from_numpy(run["frames"])
     pos = torch.arange(FRAMES)[None].expand(B, FRAMES)
     with torch.no_grad():
-        enc = _run_groups(tp["encoder"]["blocks"], frames, cfg=tc,
-                          blocks=tc.encoder_blocks, mode="train",
-                          positions=pos, caches=None, causal=False)
+        enc, _ = _run_groups(tp["encoder"]["blocks"], frames, cfg=tc,
+                             blocks=tc.encoder_blocks, mode="train",
+                             positions=pos, caches=None, causal=False)
         enc = rmsnorm(enc, tp["encoder"]["final_norm"]["scale"], tc.norm_eps)
         lt = tforward(tp, {"enc_out": enc,
                            "tokens": torch.from_numpy(run["toks"])},
