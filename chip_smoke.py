@@ -7,7 +7,7 @@ Phases, each printing its own lines (any failure exits non-zero before
 the result line):
 
   1. device  : the card's name and power limit (nvidia-smi)
-  2. build   : the seven CUDA kernels built from
+  2. build   : the eight CUDA kernels built from
                ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel
   3. kernels : each kernel against its plain PyTorch version on the card
                at the main path's shapes (paged decode also over pages
@@ -34,7 +34,15 @@ the result line):
                gradient element within 4 bf16 ulps of the magnitude of the
                terms it sums (``plain_backward(..., terms=True)``),
                bit-equal on a second call, beside SDPA's backward, with the
-               forward's O bit-equal with and without its LSE output
+               forward's O bit-equal with and without its LSE output; the
+               rwkv6 scan's backward kernel (``rwkv6_scan_bwd``, the port's
+               own) at rwkv6-7b's train shape (B 4, T 1536, H 64, D 64,
+               chunk 8; dS_T zero and nonzero), at chunk 64 and on a
+               ragged 40-row tail carrying a state, each gradient leaf
+               within max(3x the f32 ``plain_backward``'s own error, 16
+               f32 ulps of the leaf's max) of a float64
+               ``plain_backward``, bit-equal on a second call, and the
+               scan's forward at chunk 8 timed at the train shape
   4. paths   : each path driven with every launch count set to 0 just
                before it and read just after; llama-1.5b at full width
                (bf16, random weights from seeds 0 and 1):
@@ -196,8 +204,8 @@ the result line):
                             48 dense decode a decode step
                then training through ``training.train`` (remat on; every
                other model freed):
-               train        rwkv6-7b's and jamba-v0.1-52b's train steps
-                            refused before anything moves; llama-1.5b at
+               train        a train step given a mesh refused before
+                            anything moves; llama-1.5b at
                             full width and depth (bf16, AdamW moments f32,
                             seed 0), ``Pipeline`` batches of 4 x 1536
                             tokens: ten steps, each finite, a checkpoint
@@ -213,6 +221,27 @@ the result line):
                             frames and 416 tokens: two steps, the second
                             checked as above; launches exactly 36 flash
                             and 18 backward a step
+               train_rwkv   rwkv6-7b at full width, 8 of its 32 layers
+                            (2.307B params: at 16 the functional step's
+                            old and new state, 22 bytes a param, need
+                            89.5 GB; ``rwkv_train_config``), bf16, seed
+                            0, 4 x 1536-token ``Pipeline`` batches, chunk
+                            8: three steps, each finite; one batch's
+                            gradients twice, bit-equal; a step with
+                            every scan held to ``plain``, each remat
+                            recompute to its first pass and every
+                            backward call to ``plain_backward``; a
+                            profiled step and its peak; launches exactly
+                            16 rwkv6_scan and 8 rwkv6_scan_bwd a pass
+               train_jamba  jamba-v0.1-52b's mamba mixer at full width
+                            (d_inner 8192), forward and backward over 4 x
+                            1536 tokens in bf16 and in float32, every
+                            gradient within max(2^-6, 2x) / max(2^-16,
+                            16x) its sensitivity to a one-ulp input
+                            nudge of the same call on float64 copies; a
+                            whole jamba train step does not fit
+                            the card (one repeat: 13.30B params, 160 GB
+                            at 12 bytes a param)
   5. the kernels' JSON line, the card line, and the result line
 
 """
@@ -357,6 +386,7 @@ def wrappers() -> dict:
             "decode_attention": da.decode_attention,
             "spec_accept": sv.spec_accept,
             "rwkv6_scan": rs.rwkv6_scan,
+            "rwkv6_scan_bwd": rs.rwkv6_scan_bwd,
             "int8_matmul": im.int8_matmul}
 
 
@@ -1344,6 +1374,178 @@ def check_rwkv6(rs, gen) -> dict:
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, device_ms=dev,
                 tail_ms=tail_ms)
+
+
+# rwkv6-7b's train shape (B, T, H, D, chunk): 4 x 1536 tokens, chunk 8
+RWKV_TRAIN = (4, 1536, 64, 64, 8)
+
+
+def rwkv_bwd_err(rs, grads, ins, dy, dS, chunk, states=None
+                 ) -> tuple[float, float, str]:
+    """``rs.backward_error`` (each gradient leaf within max(3x the f32
+    ``plain_backward``'s own error against float64, ``rs.BWD_ULPS`` f32
+    ulps of the leaf's max |grad|)) on ``ins`` = (r, k, v, w, u, state0),
+    raising AssertionError on a non-finite gradient."""
+    try:
+        return rs.backward_error(grads, *ins, dy, dS, chunk=chunk,
+                                 states=states)
+    except ValueError as e:
+        raise AssertionError(f"rwkv6_scan_bwd: {e}") from None
+
+
+def _moderate(w, gen):
+    """w redrawn in [exp(-e^-1), exp(-e^-4)] = [0.69, 0.98]: past chunk 8
+    the decays to exp(-e^1.5) take A_incl to 1e-20 within a chunk, where
+    kA / A_incl, the gradient's own term, overflows float32 (the train
+    path runs chunk 8)."""
+    x = torch.rand(w.shape, generator=gen, device="cuda")
+    return torch.exp(-torch.exp(-4.0 + 3.0 * x))
+
+
+def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
+    """The backward kernel (``csrc/rwkv6_scan_bwd.cu``, the port's own: no
+    Pallas counterpart) at rwkv6-7b's train shape (B=4, T=1536, H=64,
+    D=64, chunk 8, state0 zero, decays to exp(-e^1.5)) with dS_T zero and
+    nonzero, at chunk 64 (B=1, T=1536) and on a ragged 40-row tail
+    carrying a state (B=4), both at w >= 0.69 (``_moderate``): the
+    forward's out and final state bit-equal with and without its states
+    output, whose first chunk is state0; those chunk-start states within
+    ``RWKV_TOL`` x max(1, the chunk's max |plain|) of ``plain_states``,
+    per chunk (``rs.states_error``); every gradient leaf within
+    ``rwkv_bwd_err``'s rule of ``plain_backward`` on the same chunk-start
+    states (the backward kernel's inputs), and within the same rule of
+    ``plain_backward`` on its own states (forward and backward kernels
+    together); bit-equal on a second call.  At the train shape
+    timed by events and by the profiler's device time beside
+    ``plain_backward`` and the bound; the forward at chunk 8 timed there
+    too, with and without the states output.  Returns (the backward's
+    row, the forward's chunk-8 case for rwkv6_scan's row)."""
+    B, T, H, D, C = RWKV_TRAIN
+    cases, row = [], None
+    for label, (b, t, c, ds_T, moderate, s0) in {
+            "train dS_T=0": (B, T, C, False, False, False),
+            "train dS_T": (B, T, C, True, False, False),
+            "chunk 64": (1, T, 64, True, True, True),
+            "ragged 40-row tail": (B, 40, 40, True, True, True)}.items():
+        r, k, v, w, u, st0 = _rwkv_inputs(b, t, H, D, gen)
+        if moderate:
+            w = _moderate(w, gen)
+        if not s0:
+            st0 = torch.zeros_like(st0)
+        dy = torch.randn((b, t, H, D), generator=gen, device="cuda")
+        dS = (torch.randn((b, H, D, D), generator=gen, device="cuda")
+              if ds_T else None)
+        ins = (r, k, v, w, u, st0)
+        o, sT, states = rs.forward_with_states(*ins, chunk=c)
+        o2, sT2 = rs.rwkv6_scan(*ins, chunk=c)
+        if not (torch.equal(o, o2) and torch.equal(sT, sT2)
+                and torch.equal(states[:, :, 0], st0)):
+            raise AssertionError(f"rwkv6_scan_bwd {label}: the forward with "
+                                 "its states output gave other bits, or "
+                                 "its first state is not state0")
+        del o2, sT2
+        s_frac = rs.states_error(states, r, k, v, w, chunk=c, tol=RWKV_TOL)
+        if s_frac > 1.0:
+            raise AssertionError(f"rwkv6_scan {label}: the chunk-start "
+                                 f"states at {s_frac:.2f} x their limit "
+                                 f"against plain_states")
+
+        def kern():
+            return rs.rwkv6_scan_bwd(r, k, v, w, u, states, dy, dS, chunk=c)
+        grads, again = kern(), kern()
+        torch.cuda.synchronize()
+        err, frac, worst = rwkv_bwd_err(rs, grads, ins, dy, dS, c, states)
+        if frac > 1.0:
+            raise AssertionError(f"rwkv6_scan_bwd {label}: {frac:.2f} x "
+                                 f"its limit ({worst})")
+        # the forward kernel and the backward kernel together, against
+        # plain_backward on its own states
+        e2e, e2e_frac, e2e_worst = rwkv_bwd_err(rs, grads, ins, dy, dS, c)
+        if e2e_frac > 1.0:
+            raise AssertionError(f"rwkv6_scan_bwd {label}: on plain's own "
+                                 f"states {e2e_frac:.2f} x its limit "
+                                 f"({e2e_worst})")
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"rwkv6_scan_bwd {label}: a second call "
+                                 "gave other bits")
+        del grads, again
+        line = (f"rwkv6_scan_bwd {label} B={b} T={t} H={H} D={D} chunk {c}: "
+                f"max_abs_err={err:.3e} ({frac:.3f} x its leaf's limit: "
+                f"max(3 x the f32 plain_backward's own error against "
+                f"float64, {rs.BWD_ULPS} f32 ulps of the leaf's max), on "
+                f"the forward kernel's chunk-start states), bit-equal on a "
+                f"second call; out and state bit-equal with and without the "
+                f"states output; those states at {s_frac:.3f} x their limit "
+                f"against plain_states ({RWKV_TOL} x max(1, the chunk's max "
+                f"|plain|), per chunk); against plain_backward on its own "
+                f"states {e2e:.3e} ({e2e_frac:.3f} x the same rule)")
+        case = dict(case=label, B=b, T=t, H=H, D=D, chunk=c, max_abs_err=err,
+                    limit_frac=frac, states_frac=s_frac,
+                    own_states_frac=e2e_frac)
+        if row is None:
+            ms = time_ms(kern, iters=10)
+            dev, names = device_ms(kern, iters=10)
+            plain_ms = time_ms(lambda: rs.plain_backward(
+                r, k, v, w, u, st0, dy, dS, chunk=c), iters=2, warmup=1)
+            # fp32 products per (b, h) chunk of c rows: v dS^T, (kA E) dS,
+            # dy S^T and rA^T dy (c D^2 FMAs each), the five strictly lower
+            # c x c products (P, dP, P^T dy, dP kA, dP^T rA; c (c-1) / 2 D
+            # each), dE (D^2 + c D)
+            fma = 4 * c * D * D + 5 * c * (c - 1) // 2 * D + D * D + c * D
+            flops = 2 * fma * b * H * (t // c)
+            # r, k, v, w, dy, u, dS_T read and dr, dk, dv, dw, du, dstate0
+            # written once (the chunk-start states, the forward's output,
+            # are read besides: 4 B H (T / c) D^2 bytes)
+            nbytes = 4 * (9 * b * t * H * D + 2 * H * D + 2 * b * H * D * D)
+            bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+            line += (f" | kernel {ms:.4f} ms, plain_backward {plain_ms:.4f} "
+                     f"ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.2f} "
+                     f"GFLOP at the fp32 CUDA-core peak, {nbytes / 1e6:.1f} "
+                     f"MB; the states read besides: "
+                     f"{4 * b * H * (t // c) * D * D / 1e6:.1f} MB), "
+                     f"{nbytes / ms / 1e6:.1f} GB/s = {bms / ms:.1%} of the "
+                     f"bound's rate\nrwkv6_scan_bwd profiler device time per "
+                     f"call: {dev:.4f} ms {names}")
+            row = dict(name="rwkv6_scan_bwd", route="cuda",
+                       source="src/repro_torch/kernels/csrc/"
+                              "rwkv6_scan_bwd.cu",
+                       replaces="none: JAX differentiates the jnp chunk body "
+                                "src/repro/models/rwkv6.py:113-140; no "
+                                "Pallas backward exists",
+                       **case, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=None, device_ms=dev)
+            # the forward at chunk 8 (what a train step runs, with the
+            # states output), timed at the same shape
+            def fwd():
+                return rs.rwkv6_scan(r, k, v, w, u, st0, chunk=c)
+            f_ms = time_ms(fwd, iters=10)
+            fs_ms = time_ms(lambda: rs.forward_with_states(
+                r, k, v, w, u, st0, chunk=c), iters=10)
+            f_dev, f_names = device_ms(fwd, iters=10)
+            f_plain = time_ms(lambda: rs.plain(r, k, v, w, u, st0, chunk=c),
+                              iters=2, warmup=1)
+            f_flops = b * H * (t // c) * (4 * c * D * D + 2 * D * c * (c - 1))
+            f_bytes = 4 * (5 * b * t * H * D + H * D + 2 * b * H * D * D)
+            f_bms, f_by = bound(f_flops, f_bytes, PEAK_F32_FLOPS)
+            line += (f"\nrwkv6_scan forward at the train chunk B={b} T={t} "
+                     f"H={H} D={D} chunk {c}: kernel {f_ms:.4f} ms, with the "
+                     f"states output {fs_ms:.4f} ms, plain {f_plain:.4f} ms, "
+                     f"bound {f_bms:.4f} ms ({f_by}: {f_flops / 1e9:.2f} "
+                     f"GFLOP, {f_bytes / 1e6:.1f} MB) = {f_bms / f_ms:.1%} of "
+                     f"the bound's rate; profiler device time per call "
+                     f"{f_dev:.4f} ms {f_names}")
+            fwd_case = dict(case="train chunk 8", B=b, T=t, H=H, D=D, chunk=c,
+                            ms=f_ms, states_ms=fs_ms, plain_ms=f_plain,
+                            bound_ms=f_bms, bound_by=f_by, library_ms=None,
+                            device_ms=f_dev)
+        else:
+            cases.append(case)
+        log(line)
+        del r, k, v, w, u, st0, dy, dS, states, o, sT
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [c["max_abs_err"] for c in cases])
+    row["cases"] = cases
+    return row, fwd_case
 
 
 def _int8_case(M, K, N, dtype, gen):
@@ -4821,29 +5023,28 @@ class ShadowedTrain(Shadowed):
         self.fa.backward_kernel = self.bwd_kernel
 
 
-def refuse_untrained(tc):
-    """rwkv6-7b's and jamba-v0.1-52b's train steps refused with
-    ``ValueError`` before anything moves: no launch, no allocation (the
-    configs' weights are never made)."""
+def refuse_mesh(tc):
+    """A train step given a mesh refused with ``NotImplementedError``
+    before anything moves: no launch, no allocation (one card has no
+    mesh; ``sharding.py`` is ROADMAP Queue 1 work)."""
     from repro_torch.configs import get
     from repro_torch.training.train import train_step
     zero_counts()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    said = []
-    for name in ("rwkv6-7b", "jamba-v0.1-52b"):
-        try:
-            train_step({}, {}, {}, cfg=get(name), tcfg=tc)
-        except ValueError as e:
-            said.append(f"{name}: {e}")
-        else:
-            raise AssertionError(f"{name}: a train step was not refused")
+    try:
+        train_step({}, {}, {}, cfg=get("llama-1.5b"), tcfg=tc,
+                   mesh=object())
+    except NotImplementedError as e:
+        said = str(e)
+    else:
+        raise AssertionError("a train step with a mesh was not refused")
     torch.cuda.synchronize()
     if any(read_counts().values()) or \
             torch.cuda.memory_allocated() != before:
         raise AssertionError("a refused train step launched or allocated")
-    log(f"train: refused before anything moved (no launch, no allocation): "
-        f"{'; '.join(said)}")
+    log(f"train: a mesh refused before anything moved (no launch, no "
+        f"allocation): {said}")
 
 
 def train_batch(pipe, step: int) -> dict:
@@ -4911,9 +5112,9 @@ def run_train() -> dict:
     ``checkpoint/disk.py`` before step 5; the run again from it, bit for
     bit; ``microbatches=2`` against 1 on one batch; one step with every
     flash call held to its plain version and every backward call to
-    ``plain_backward`` (``ShadowedTrain``); a profiled step; the rwkv and
-    jamba refusals.  Launches exactly 48 flash (24 + 24 recomputed) and
-    24 backward a forward pass."""
+    ``plain_backward`` (``ShadowedTrain``); a profiled step; the mesh
+    refusal.  Launches exactly 48 flash (24 + 24 recomputed) and 24
+    backward a forward pass."""
     import shutil
 
     from repro_torch.checkpoint import disk
@@ -4927,7 +5128,7 @@ def run_train() -> dict:
     release()
     tc = TrainConfig(AdamWConfig(lr=1e-3, warmup_steps=2,
                                  total_steps=TRAIN_STEPS))
-    refuse_untrained(tc)
+    refuse_mesh(tc)
     cfg = get("llama-1.5b")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
@@ -5092,6 +5293,354 @@ def run_train_whisper() -> dict:
     return counts
 
 
+RWKV_TRAIN_LAYERS = 8     # rwkv6-7b's train depth on one card (of 32)
+RWKV_TRAIN_STEPS = 3
+
+
+def rwkv_train_config():
+    """(rwkv6-7b at full width and ``RWKV_TRAIN_LAYERS`` of its 32
+    layers, the full config).  Depth is what one card sets: the port's
+    step is functional (the JAX step donates its state), so at the update
+    the old and the new params and AdamW moments are alive together with
+    the grads, 22 bytes a parameter (bf16 weights twice, f32 moments
+    twice, bf16 grads), and AdamW's f32 temporaries of the largest leaf
+    come on top (the stacked channel-mix ``wk``: layers x 4096 x 14336).
+    At 16 layers (4.07B params) that is 89.5 GB before activations, at 12
+    (3.19B) 70.2 GB plus ~11 GB of temporaries: neither fits the card's
+    80 GB under the 72 GB this path allows itself.  8 layers (2.30B) is
+    50.7 GB plus ~7 GB."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import BlockDef
+    full = get("rwkv6-7b")
+    return full.replace(blocks=(BlockDef(full.blocks[0].layers,
+                                         repeats=RWKV_TRAIN_LAYERS),)), full
+
+
+class ShadowedRwkv:
+    """Within the block, every ``ops.rwkv6_scan`` call of a train step
+    (each layer's forward and its remat recompute) is held to ``plain``
+    on its own inputs, output and final state within ``RWKV_TOL`` x
+    max(1, max |plain|) (the kernel phase's 5e-4 at unit scale, relative
+    past it), and each recompute to its first pass bit for bit; every
+    backward call (``rwkv6_scan.backward_kernel``, which ``RWKV6Scan``
+    looks up at each call) to ``plain_backward`` by ``rwkv_bwd_err``'s
+    rule on its own inputs, the forward kernel's chunk-start states
+    among them, after those states are held to ``plain_states`` per chunk
+    (``rs.states_error``: ``RWKV_TOL`` x max(1, the chunk's max |plain|),
+    state0 being the kernel's first state, which the kernel phase holds
+    to state0 bit for bit).  ``calls``, ``worst``, ``recomputed``,
+    ``pending``, ``bwd``, ``bwd_worst`` and ``states_worst`` are
+    kept."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import rwkv6_scan as rs
+        self.ops, self.rs = ops, rs
+        self.orig, self.bwd_kernel = ops.rwkv6_scan, rs.backward_kernel
+        ops.rwkv6_scan, rs.backward_kernel = self.forward, self.backward
+        self.calls = self.recomputed = self.bwd = 0
+        self.worst = self.bwd_worst = self.states_worst = 0.0
+        self.pending = []       # ((r, k, v, w), out) of first-pass calls
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.rwkv6_scan = self.orig
+        self.rs.backward_kernel = self.bwd_kernel
+
+    def forward(self, r, k, v, w, u, state0, *, chunk=64):
+        out, sT = self.orig(r, k, v, w, u, state0, chunk=chunk)
+        with torch.no_grad():
+            ref, s_ref = self.rs.plain(r, k, v, w, u, state0, chunk=chunk)
+            top = max(1.0, float(ref.abs().max()), float(s_ref.abs().max()))
+            frac = max(max_err(out, ref), max_err(sT, s_ref)) / (
+                RWKV_TOL * top)
+        del ref, s_ref
+        self.calls += 1
+        self.worst = max(self.worst, frac)
+        if not torch.isfinite(out).all() or frac > 1.0:
+            raise AssertionError(f"rwkv6_scan in the train step: {frac:.2f} "
+                                 "x its limit against plain")
+        ins = (r, k, v, w)
+        for i, (fins, fout) in enumerate(self.pending):
+            if all(a.shape == b.shape and torch.equal(a, b)
+                   for a, b in zip(fins, ins)):
+                if not torch.equal(fout, out):
+                    raise AssertionError("rwkv6_scan: the remat recompute "
+                                         "gave other bits than the first "
+                                         "pass")
+                self.recomputed += 1
+                del self.pending[i]
+                return out, sT
+        self.pending.append((tuple(t.detach().clone() for t in ins),
+                             out.detach().clone()))
+        return out, sT
+
+    def backward(self, r, k, v, w, u, states, dy, dS_T, *, chunk):
+        with torch.no_grad():
+            s_frac = self.rs.states_error(states, r, k, v, w, chunk=chunk,
+                                          tol=RWKV_TOL)
+        self.states_worst = max(self.states_worst, s_frac)
+        if s_frac > 1.0:
+            raise AssertionError(f"rwkv6_scan in the train step: the "
+                                 f"chunk-start states at {s_frac:.2f} x "
+                                 f"their limit against plain_states")
+        grads = self.bwd_kernel(r, k, v, w, u, states, dy, dS_T, chunk=chunk)
+        with torch.no_grad():
+            _, frac, worst = rwkv_bwd_err(
+                self.rs, grads, (r, k, v, w, u, states[:, :, 0]), dy, dS_T,
+                chunk, states)
+        self.bwd += 1
+        self.bwd_worst = max(self.bwd_worst, frac)
+        if frac > 1.0:
+            raise AssertionError(f"rwkv6_scan_bwd in the train step: "
+                                 f"{frac:.2f} x its limit against "
+                                 f"plain_backward ({worst})")
+        return grads
+
+
+def run_train_rwkv() -> dict:
+    """rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff 14336,
+    V 65536) and ``RWKV_TRAIN_LAYERS`` of its 32 layers
+    (``rwkv_train_config`` says why; bf16, seed 0, AdamW moments f32)
+    through ``training.train``'s step with remat, chunk 8, on
+    ``Pipeline(DataConfig(65536, 1536, 4))`` batches: three steps, each
+    finite; one batch's gradients computed twice, bit-equal; one step
+    with every scan held to ``plain``, each remat recompute to its first
+    pass and every backward call to ``plain_backward``
+    (``ShadowedRwkv``); a profiled step with its peak memory.  Launches
+    exactly L rwkv6_scan forward + L recomputed and L rwkv6_scan_bwd a
+    forward pass, for L layers, and no other kernel."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models.init import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.training.train import (TrainConfig, grads_fn,
+                                            make_train_step)
+    release()
+    cfg, full = rwkv_train_config()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                         device="cuda")
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    log(f"train_rwkv: {cfg.name} at full width, {cfg.num_layers} of "
+        f"{full.num_layers} layers ({cfg.param_count() / 1e9:.3f}B params "
+        f"bf16 from seed {SEED}, AdamW moments f32; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), "
+        f"initialised in {time.perf_counter() - t0:.2f} s; batches "
+        f"{TRAIN_ROWS} x {TRAIN_SEQ} tokens from Pipeline, chunk 8, remat on "
+        f"({gpu_line()})")
+    zero_counts()
+    B, S, L = TRAIN_ROWS, TRAIN_SEQ, cfg.num_layers
+    pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
+    tc = TrainConfig(AdamWConfig(lr=1e-3, warmup_steps=2,
+                                 total_steps=TRAIN_STEPS))
+    step = make_train_step(cfg, tc)
+    passes, walls = 0, []
+    for i in range(RWKV_TRAIN_STEPS):
+        params, opt, m, wall = timed_step(step, params, opt,
+                                          train_batch(pipe, i))
+        passes += 1
+        walls.append(wall)
+        train_line("train_rwkv", i, m, wall, B * S)
+
+    batch = train_batch(pipe, RWKV_TRAIN_STEPS)
+    g1, l1, _ = grads_fn(params, batch, cfg, tc)
+    g2, l2, _ = grads_fn(params, batch, cfg, tc)
+    passes += 2
+    finite = all(bool(torch.isfinite(a).all()) for a in leaves(g1))
+    same = torch.equal(l1, l2) and all(
+        torch.equal(a, b) for a, b in zip(leaves(g1), leaves(g2)))
+    del g1, g2
+    if not (finite and same):
+        raise AssertionError(f"train_rwkv: one batch's gradients twice: "
+                             f"finite {finite}, bit-equal {same}")
+    log(f"train_rwkv: one batch's gradients computed twice: finite and "
+        f"bit-equal (loss {float(l1):.6f} both times)")
+
+    with ShadowedRwkv() as shadow:
+        params, opt, m, wall = timed_step(
+            step, params, opt, train_batch(pipe, RWKV_TRAIN_STEPS + 1))
+    passes += 1
+    train_line("train_rwkv", RWKV_TRAIN_STEPS + 1, m, wall, B * S)
+    if (shadow.calls, shadow.recomputed, len(shadow.pending), shadow.bwd) \
+            != (2 * L, L, 0, L):
+        raise AssertionError(f"train_rwkv: shadowed step saw {shadow.calls} "
+                             f"scans, {shadow.recomputed} recomputes "
+                             f"matched, {len(shadow.pending)} unmatched, "
+                             f"{shadow.bwd} backward calls")
+    log(f"train_rwkv: one step with every rwkv6_scan call held to plain "
+        f"({shadow.calls} calls, worst at {shadow.worst:.3f} x its limit: "
+        f"{RWKV_TOL} x max(1, max |plain|)), each of the "
+        f"{shadow.recomputed} remat recomputes equal to its first pass bit "
+        f"for bit, and every backward call held to plain_backward "
+        f"({shadow.bwd} calls, worst leaf at {shadow.bwd_worst:.3f} x its "
+        f"limit) on the forward kernel's chunk-start states, each held to "
+        f"plain_states first (worst chunk at {shadow.states_worst:.3e} x "
+        f"{RWKV_TOL} x max(1, the chunk's max |plain|))")
+
+    batch = train_batch(pipe, RWKV_TRAIN_STEPS + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, busy = profiled(lambda: step(params, opt, batch),
+                          f"train_rwkv step ({B} x {S} tokens)", 1)
+    passes += 1
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls)[len(walls) // 2]
+    log(f"train_rwkv: step wall median {med * 1e3:.1f} ms over {len(walls)} "
+        f"steps ({B * S / med:.0f} tokens/s); profiled {wall:.1f} ms wall, "
+        f"{busy:.1f} ms busy ({100 - 100 * busy / wall:.1f}% idle), "
+        f"{B * S / wall * 1e3:.0f} tokens/s, peak {peak / 1e9:.1f} GB "
+        f"({gpu_line()})")
+    counts = read_counts()
+    want = {"rwkv6_scan": 2 * L * passes, "rwkv6_scan_bwd": L * passes}
+    got = {k: n for k, n in counts.items() if n or k in want}
+    if got != want:
+        raise AssertionError(f"train_rwkv launch counts {got}: need {want} "
+                             f"({L} layers x {passes} forward passes)")
+    log(f"train_rwkv: launches rwkv6_scan={want['rwkv6_scan']} ({L} x "
+        f"{passes} forward passes, each with its remat recompute), "
+        f"rwkv6_scan_bwd={want['rwkv6_scan_bwd']} ({L} x {passes}), no "
+        f"other kernel, exactly")
+    del params, opt, batch
+    release()
+    return counts
+
+
+# the float32 mixer gradient leaf's limit against float64 copies,
+# relative to its max: max(floor, factor x the float64 call's move under
+# a one-ulp float32 input nudge)
+JAMBA_GRAD_RULE = (2.0 ** -16, 16)
+
+
+def run_train_jamba() -> dict:
+    """jamba-v0.1-52b's mamba mixer at full width (d_model 4096, d_inner
+    8192, d_state 16, d_conv 4; bf16 weights from seed 0) through
+    ``mamba_parallel``'s forward and autograd's backward on B=4 x T=1536
+    tokens (a unit-normal input rounded to bf16, a unit-normal upstream
+    gradient), in bf16 and again on float32 copies, each against the same
+    call on float64 copies on the card (which keeps the reference's f32
+    casts: dt, B, C and the recurrence).  Every output and gradient of
+    each call is finite.  The float32 call's gradients are held, per leaf
+    (the weights' and the input's), relative to the float64 call's max
+    |grad|: within max(2^-16, 16 x ``sens``) (``JAMBA_GRAD_RULE``), where
+    ``sens`` is how far the float64 call's gradient moves when its input
+    moves by one float32 ulp (a seeded coin an element).  The bf16
+    call's distance from float64, and its ``sens`` under a one-ulp bf16
+    nudge, are reported, not held: the random-init mixer is
+    ill-conditioned (dt reaches hundreds through softplus), and at full
+    width on an H100 a one-ulp bf16 nudge of the input moved the float64
+    gradients by 1.0-1.3 of their max, so no rule built on it could tell
+    a wrong bf16 gradient from a right one; in float32 the nudge moved
+    them by 2.1e-7 to 6.2e-4 of their max.  The float32 call rounds at
+    tens of places (the 1536-step recurrence among them), each a
+    perturbation like the one nudge, and read 3.4-6.8 x ``sens`` on the
+    card: hence 16.  Wall and peak printed.  A whole jamba train step is not run: one repeat
+    of its block does not fit the card (the first line says by how
+    much).  No kernel launches: the scan is plain torch, as in the
+    reference."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import BlockDef, LayerSpec
+    from repro_torch.models import mamba
+    from repro_torch.models.init import init_params
+    release()
+    zero_counts()
+    full = get("jamba-v0.1-52b")
+    one = full.replace(blocks=(BlockDef(full.blocks[0].layers, repeats=1),))
+    n1 = one.param_count()
+    log(f"train_jamba: a full-width {full.name} train step does not fit "
+        f"one card: one repeat of its block (8 layers: 4 mamba, 4 MoE of "
+        f"{full.moe.num_experts} experts of 4096 x {full.moe.d_expert}, one "
+        f"attention) is {n1 / 1e9:.2f}B params, {12 * n1 / 1e9:.0f} GB at "
+        f"12 bytes a param (bf16 weights and grads, f32 AdamW moments) "
+        f"before activations, against the card's 80 GB; its mamba mixer "
+        f"runs here alone, forward and backward")
+    cfg = full.replace(blocks=(BlockDef((LayerSpec("mamba", "dense"),),
+                                        repeats=1),))
+    p = {k: v[0] for k, v in init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED),
+        device="cuda")["blocks"][0][0]["mamba"].items() if k != "ln"}
+    release()
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    B, T = TRAIN_ROWS, TRAIN_SEQ
+    x = torch.randn((B, T, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    g = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda")
+    up = torch.rand(x.shape, generator=gen, device="cuda") < 0.5
+
+    def nudged(dtype):
+        """x moved by one ulp of ``dtype``, up or down by the coin."""
+        xd = x.to(dtype)
+        inf = torch.full_like(xd, float("inf"))
+        return torch.nextafter(xd, torch.where(up, inf, -inf))
+
+    def run(dtype, xx):
+        ps = {k: v.to(dtype).requires_grad_() for k, v in p.items()}
+        xs = xx.to(dtype).requires_grad_()
+        release()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out, _, _ = mamba.mamba_parallel(ps, xs, cfg)
+        torch.cuda.synchronize()
+        fwd = time.perf_counter() - t
+        grads = torch.autograd.grad((out.float() * g).sum(),
+                                    [*ps.values(), xs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        finite = bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(a).all()) for a in grads)
+        if not finite:
+            raise AssertionError(f"train_jamba: a non-finite output or "
+                                 f"gradient in the {dtype} call")
+        return dict(zip([*ps, "x"], grads)), fwd, wall, peak
+
+    ref, fwd64, wall64, peak64 = run(torch.float64, x)
+    lines = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        got, fwd, wall, peak = run(dtype, x)
+        moved = run(torch.float64, nudged(dtype))[0]
+        worst, parts = 0.0, []
+        floor, factor = JAMBA_GRAD_RULE
+        for k in ref:
+            top = max(float(ref[k].abs().max()), 1e-300)
+            err = float((got[k].double() - ref[k]).abs().max()) / top
+            sens = float((moved[k] - ref[k]).abs().max()) / top
+            worst = max(worst, err / max(floor, factor * sens))
+            parts.append(f"{k} {err:.2e} (sens {sens:.2e})")
+        del got, moved
+        held = dtype == torch.float32
+        if held and worst > 1.0:
+            raise AssertionError(f"train_jamba: a {name} gradient at "
+                                 f"{worst:.2f} x its limit against float64: "
+                                 f"{'; '.join(parts)}")
+        verdict = (f"within max({floor:.3g}, {factor} x sens) of its leaf's "
+                   f"max |grad| of float64 copies, worst at {worst:.3f} x "
+                   f"its limit" if held else
+                   "against float64 copies reported, not held (a one-ulp "
+                   "bf16 nudge moves the float64 gradients by about their "
+                   "own size at this init)")
+        lines.append(
+            f"train_jamba: mamba_parallel at full width (d_inner "
+            f"{cfg.d_inner}, d_state {cfg.mamba_d_state}, d_conv "
+            f"{cfg.mamba_d_conv}), B={B} T={T}, {name}: forward "
+            f"{fwd * 1e3:.1f} ms, forward + backward {wall * 1e3:.1f} ms "
+            f"wall, peak {peak / 1e9:.2f} GB above the weights; every grad "
+            f"finite; {verdict} (error relative to the leaf's max, and "
+            f"sens: the float64 gradient's move under a one-ulp {name} "
+            f"input nudge: {'; '.join(parts)})")
+    for ln in lines:
+        log(ln)
+    log(f"train_jamba: the float64 call {wall64 * 1e3:.1f} ms, peak "
+        f"{peak64 / 1e9:.2f} GB ({gpu_line()})")
+    del ref, p, x, g, up
+    release()
+    return read_counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5128,6 +5677,9 @@ def main() -> int:
         check_flash(fa, gen), check_flash_bwd(fa, gen), check_paged(da, gen),
         check_decode(da, gen),
         check_spec(sv, gen), check_rwkv6(rs, gen), check_int8(im, gen)]
+    bwd_row, chunk8 = check_rwkv6_bwd(rs, gen)
+    rows[5]["cases"] = [chunk8]
+    rows.insert(6, bwd_row)
     # the other models' shapes (head dims 160 and 256, G 4 and 6, full
     # mode, D 64, a cross cache): each case in its kernel's row
     for row, wide in zip((rows[0], *rows[2:]), (
@@ -5200,6 +5752,8 @@ def main() -> int:
     drive("internvl", run_internvl)
     drive("train", run_train)
     drive("train_whisper", run_train_whisper)
+    drive("train_rwkv", run_train_rwkv)
+    drive("train_jamba", run_train_jamba)
     log(f"paths: wall seconds {wall}")
     for row in rows:
         name = row["name"]

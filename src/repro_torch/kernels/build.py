@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_decode_attention",
-           "decode_attention", "spec_verify", "rwkv6_scan", "int8_matmul")
+           "decode_attention", "spec_verify", "rwkv6_scan", "rwkv6_scan_bwd",
+           "int8_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,15 +116,16 @@ def refuse_grad(kernel: str, *tensors) -> None:
     """Raise ``ValueError`` where autograd would need the gradient of a
     kernel that has none (grad mode on and an input that requires it):
     its output would be cut off from the graph with no error.  Flash
-    attention has its backward (``flash_attention.FlashAttention``); the
-    other kernels' backwards are ROADMAP Queue 1 work."""
+    attention and the rwkv6 scan have their backwards
+    (``flash_attention.FlashAttention``, ``rwkv6_scan.RWKV6Scan``); the
+    other kernels are never on a train step's path."""
     import torch
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError(
             f"{kernel}: the CUDA kernel has no backward, and autograd needs "
-            "the gradient of its inputs here (ROADMAP Queue 1: training "
-            "beyond flash attention); run it under torch.no_grad() or on "
-            "inputs that do not require grad")
+            "the gradient of its inputs here (ROADMAP Queue 1: only flash "
+            "attention and rwkv6_scan have backward kernels); run it under "
+            "torch.no_grad() or on inputs that do not require grad")
 
 
 def on_device(t):

@@ -234,8 +234,8 @@ __global__ void __launch_bounds__(threads_for(D), D == 64 ? 1 : 2)
 rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ w,
                   const float* __restrict__ u, const float* __restrict__ s0,
-                  float* __restrict__ out, float* __restrict__ sT, int T,
-                  int H, int C, Strides st,
+                  float* __restrict__ out, float* __restrict__ sT,
+                  float* __restrict__ states, int T, int H, int C, Strides st,
                   const __grid_constant__ CUtensorMap rmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap wmap,
@@ -345,6 +345,13 @@ rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const float* Sold = smem + L::S + (ci & 1) * D * PV;
     float* Snew = smem + L::S + ((ci + 1) & 1) * D * PV;
     const int c0 = ci * C;
+    // the chunk's start state, for the backward (rwkv6_scan_bwd.cu), when
+    // asked: (B, H, T / C, D, D), this CTA's DV columns
+    if (states != nullptr) {
+      float* sg = states + (sbase / (D * D) * nchunks + ci) * D * D + j0;
+      for (int i = tid; i < D * DV; i += THREADS)
+        sg[i / DV * D + i % DV] = Sold[i / DV * PV + i % DV];
+    }
 
     // (i) this thread's rows of r, k and log w into registers, the sum of
     //     log w; the bonus r_t . (u * k_t), a warp's rows side by side
@@ -646,9 +653,9 @@ bool encode(CUtensorMap* map, const void* ptr, int D, int H, int T, int B,
 
 template <int D, int DV, bool TMA>
 int launch_one(const void* r, const void* k, const void* v, const void* w,
-               const void* u, const void* s0, void* out, void* sT, int B,
-               int T, int H, int C, const Strides& st, const CUtensorMap* maps,
-               cudaStream_t stream) {
+               const void* u, const void* s0, void* out, void* sT,
+               void* states, int B, int T, int H, int C, const Strides& st,
+               const CUtensorMap* maps, cudaStream_t stream) {
   constexpr int bytes = Smem<D, DV>::BYTES;
   // above 48 KB only as opted-in dynamic shared memory
   static bool opted_in = false;
@@ -664,27 +671,29 @@ int launch_one(const void* r, const void* k, const void* v, const void* w,
           static_cast<const float*>(r), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<const float*>(w),
           static_cast<const float*>(u), static_cast<const float*>(s0),
-          static_cast<float*>(out), static_cast<float*>(sT), T, H, C, st,
-          maps[0], maps[1], maps[2], maps[3]);
+          static_cast<float*>(out), static_cast<float*>(sT),
+          static_cast<float*>(states), T, H, C, st, maps[0], maps[1], maps[2],
+          maps[3]);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int DV>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, const void* s0, void* out, void* sT, int B, int T,
-           int H, int C, bool tma, const Strides& st, cudaStream_t stream) {
+           const void* u, const void* s0, void* out, void* sT, void* states,
+           int B, int T, int H, int C, bool tma, const Strides& st,
+           cudaStream_t stream) {
   using L = Smem<D, DV>;
   CUtensorMap maps[4] = {};
   if (!tma)
-    return launch_one<D, DV, false>(r, k, v, w, u, s0, out, sT, B, T, H, C,
-                                    st, maps, stream);
+    return launch_one<D, DV, false>(r, k, v, w, u, s0, out, sT, states, B, T,
+                                    H, C, st, maps, stream);
   if (!(encode(&maps[0], r, D, H, T, B, st.rh, st.rt, st.rb, L::PD, C) &&
         encode(&maps[1], k, D, H, T, B, st.kh, st.kt, st.kb, L::PD, C) &&
         encode(&maps[2], w, D, H, T, B, st.wh, st.wt, st.wb, L::PD, C) &&
         encode(&maps[3], v, D, H, T, B, st.vh, st.vt, st.vb, L::PV, C)))
     return -2;
-  return launch_one<D, DV, true>(r, k, v, w, u, s0, out, sT, B, T, H, C, st,
-                                 maps, stream);
+  return launch_one<D, DV, true>(r, k, v, w, u, s0, out, sT, states, B, T, H,
+                                 C, st, maps, stream);
 }
 
 bool aligned16(const void* p) {
@@ -696,7 +705,9 @@ bool aligned16(const void* p) {
 // strides: 12 element strides (batch, time, head) of r, k, v, w in that
 // order; u (H, D), state0 / stateT (B, H, D, D) and out (B, T, H, D) are
 // contiguous; DV the value columns a CTA owns (`split` in the wrapper);
-// tma 1 to load by TMA (`aligned` in the wrapper), 0 by 4-byte copies.
+// tma 1 to load by TMA (`aligned` in the wrapper), 0 by 4-byte copies;
+// states, when not null, (B, H, T / C, D, D) contiguous: the state at the
+// start of each chunk, which the backward reads.
 // Returns the cudaError_t of the launch (0 = cudaSuccess); -1 for a shape
 // this file does not take (the Python wrapper checks first), -2 when a
 // tensor map cannot be encoded.
@@ -705,7 +716,7 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* s0, void* out, void* sT, int B,
                                  int T, int H, int D, int C, int DV,
                                  int tma, const long long* strides,
-                                 void* stream) {
+                                 void* stream, void* states) {
   if (B < 1 || T < 1 || H < 1 || C < 1 || C > MAX_C || T % C) return -1;
   // a size-1 dim's stride is never stepped: give it the packed value
   long long s[12];
@@ -724,8 +735,8 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
 #define RWKV6_CASE(d, dv)                                                   \
   if (D == d && DV == dv)                                                  \
-    return launch<d, dv>(r, k, v, w, u, s0, out, sT, B, T, H, C, tma != 0, \
-                         st, cs);
+    return launch<d, dv>(r, k, v, w, u, s0, out, sT, states, B, T, H, C,   \
+                         tma != 0, st, cs);
   RWKV6_CASE(16, 16)
   RWKV6_CASE(32, 16)
   RWKV6_CASE(64, 32)

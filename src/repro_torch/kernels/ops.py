@@ -12,11 +12,13 @@
 
 Under autograd (grad mode on and an input that requires grad) the three
 attention ops that reach flash go through ``FlashAttention`` (the
-forward kernel with its LSE, the hand-written backward kernel); every
-other kernel wrapper raises ``ValueError`` naming itself and ROADMAP
-Queue 1 (``build.refuse_grad``): a kernel's output is never cut off from
-the graph, and a card never falls back to a plain version.  On the CPU
-the plain versions are differentiated as any torch code.
+forward kernel with its LSE, the hand-written backward kernel) and
+``rwkv6_scan`` through ``RWKV6Scan`` (the forward kernel with its
+chunk-start states, the hand-written backward kernel); every other
+kernel wrapper raises ``ValueError`` naming itself and ROADMAP Queue 1
+(``build.refuse_grad``): a kernel's output is never cut off from the
+graph, and a card never falls back to a plain version.  On the CPU the
+plain versions are differentiated as any torch code.
 
 Prefill attention keeps the reference's prompt-length domain: the JAX
 blockwise path and the Pallas kernel both require every sequence length
@@ -167,7 +169,8 @@ def spec_verify(draft_tokens, draft_probs, target_probs, generator):
 
 def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
     """Chunked RWKV6 linear attention: (out (B,T,H,D), final state
-    (B,H,D,D)), fp32.  T must be a multiple of ``min(chunk, T)``."""
+    (B,H,D,D)), fp32.  T must be a multiple of ``min(chunk, T)``.  Under
+    autograd on the card, through ``RWKV6Scan`` (its backward kernel)."""
     if _use_kernel(r):
         return rs.rwkv6_scan(r, k, v, w, u, state0, chunk=chunk)
     return rs.plain(r, k, v, w, u, state0, chunk=chunk)

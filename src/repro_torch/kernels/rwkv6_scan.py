@@ -13,19 +13,35 @@ The kernel splits each head over blocks of DV value columns, one CTA a
 never from a failed build or launch.  ``aligned`` picks how the
 kernel loads: by TMA where every row of r, k, v and w starts on a
 16-byte boundary, else by 4-byte copies, with the same result.
+
+Where autograd needs the gradient (grad mode on and an input that
+requires it) the call goes through ``RWKV6Scan``: its forward launches
+the same kernel with the chunk-start states as a third output
+(``forward_with_states``), and its backward launches
+``csrc/rwkv6_scan_bwd.cu`` (``rwkv6_scan_bwd``), a kernel of the port's
+own: the JAX package differentiates the jnp chunk body
+(``repro/models/rwkv6.py::timemix_parallel``) and has no Pallas
+backward.  ``plain_backward`` is that backward in plain PyTorch, written
+out as its formulas (no autograd), against which the tests and
+``chip_smoke.py`` hold the backward kernel by one rule
+(``backward_error``), and ``plain_states`` the forward's chunk-start
+states, against which they hold the kernel's (``states_error``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import build
 
 NAME = "rwkv6_scan"
+BWD_NAME = "rwkv6_scan_bwd"
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 64
+EPS = 1e-24                 # the clamp of kA's divisor, max(A_incl, EPS)
 # value columns a CTA owns (the kernel's DV), by head dim: at D = 64, 32
 # (B = 1, H = 64: 128 CTAs of 16 warps, one an SM); below it, 16
 SPLIT = {16: 16, 32: 16, 64: 32}
@@ -51,13 +67,28 @@ def aligned(r, k, v, w) -> bool:
     return True
 
 
+_fns: dict = {}
+
+
 def _bind():
-    lib = build.load(NAME)
-    fn = lib.rwkv6_scan_launch
-    if fn.argtypes is None:
+    fn = _fns.get(NAME)
+    if fn is None:
+        fn = build.load(NAME).rwkv6_scan_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P]
         fn.restype = I
+        _fns[NAME] = fn
+    return fn
+
+
+def _bind_bwd():
+    fn = _fns.get(BWD_NAME)
+    if fn is None:
+        fn = build.load(BWD_NAME).rwkv6_scan_bwd_launch
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 14 + [I] * 5 + [P]
+        fn.restype = I
+        _fns[BWD_NAME] = fn
     return fn
 
 
@@ -70,15 +101,15 @@ def _chunk(T: int, chunk: int) -> int:
     return chunk
 
 
-def _check(r, k, v, w, u, state0, chunk):
+def _check(r, k, v, w, u, state0, chunk, kernel=NAME):
     tensors = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
                ("state0", state0))
     for name, t in tensors:
         if not t.is_cuda:
-            raise ValueError(f"rwkv6_scan kernel needs CUDA tensors; {name} "
+            raise ValueError(f"{kernel} kernel needs CUDA tensors; {name} "
                              f"is on {t.device}")
         if t.dtype != torch.float32:
-            raise ValueError(f"rwkv6_scan kernel takes float32; {name} is "
+            raise ValueError(f"{kernel} kernel takes float32; {name} is "
                              f"{t.dtype}")
     if len({t.device for _, t in tensors}) != 1:
         raise ValueError("inputs on different devices")
@@ -106,12 +137,10 @@ def _check(r, k, v, w, u, state0, chunk):
             raise ValueError(f"{name} must be contiguous")
 
 
-def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
-    """r,k,v,w: (B,T,H,D) fp32 on the card (w = per-step decay in (0,1));
-    u: (H,D); state0: (B,H,D,D) fp32.  Returns (out (B,T,H,D) fp32,
-    final state (B,H,D,D)).  Same signature as the Pallas kernel; T must
-    be a multiple of ``min(chunk, T)``."""
-    build.refuse_grad(NAME, r, k, v, w, u, state0)
+def _launch(r, k, v, w, u, state0, chunk, with_states):
+    """One launch of the forward kernel: (out, final state), and with
+    ``with_states`` also the state at the start of every chunk, (B, H,
+    T / chunk, D, D) fp32, which the backward reads."""
     chunk = _chunk(r.shape[1], chunk)
     _check(r, k, v, w, u, state0, chunk)
     fn = _bind()
@@ -119,6 +148,8 @@ def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
     dv = split(B, H, D)
     out = torch.empty((B, T, H, D), dtype=torch.float32, device=r.device)
     stateT = torch.empty_like(state0)
+    states = (torch.empty((B, H, T // chunk, D, D), dtype=torch.float32,
+                          device=r.device) if with_states else None)
     strides = (ctypes.c_longlong * 12)(*r.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *w.stride()[:3])
     with build.on_device(r):
@@ -127,40 +158,139 @@ def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
                  u.data_ptr(), state0.data_ptr(), out.data_ptr(),
                  stateT.data_ptr(), B, T, H, D, chunk, dv,
                  int(aligned(r, k, v, w)),
-                 ctypes.cast(strides, ctypes.c_void_p), stream)
+                 ctypes.cast(strides, ctypes.c_void_p), stream,
+                 states.data_ptr() if with_states else None)
     if err != 0:
         what = {-1: "shape refused", -2: "tensor map not encoded"}.get(
             err, f"cudaError {err}")
         raise RuntimeError(f"rwkv6_scan launch failed (split {dv}): {what}")
     build.count_launch(rwkv6_scan)
-    return out, stateT
+    return out, stateT, states
+
+
+def rwkv6_scan(r, k, v, w, u, state0, *, chunk=64):
+    """r,k,v,w: (B,T,H,D) fp32 on the card (w = per-step decay in (0,1));
+    u: (H,D); state0: (B,H,D,D) fp32.  Returns (out (B,T,H,D) fp32,
+    final state (B,H,D,D)).  Same signature as the Pallas kernel; T must
+    be a multiple of ``min(chunk, T)``.  Where autograd needs the
+    gradient, through ``RWKV6Scan``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state0)):
+        return RWKV6Scan.apply(r, k, v, w, u, state0, chunk)
+    return _launch(r, k, v, w, u, state0, chunk, False)[:2]
 
 
 rwkv6_scan.launches = 0
 
 
+def forward_with_states(r, k, v, w, u, state0, *, chunk=64):
+    """The forward kernel with its third output: (out, final state, the
+    state at the start of each chunk (B, H, T / chunk, D, D)).  out and
+    the final state are the same bits as ``rwkv6_scan``'s."""
+    return _launch(r, k, v, w, u, state0, chunk, True)
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, states, dy, dS_T=None, *, chunk=64):
+    """dr, dk, dv, dw (B, T, H, D), du (H, D) and dstate0 (B, H, D, D)
+    of ``rwkv6_scan`` at ``chunk`` from its inputs, the chunk-start
+    states of ``forward_with_states``, the output's gradient ``dy`` and
+    the final state's ``dS_T`` (None: zeros), all fp32.  One launch, one
+    CTA a (batch, head) walking its chunks in reverse; the CTAs' du
+    partials (B, H, D) are summed over the batch here, in order."""
+    chunk = _chunk(r.shape[1], chunk)
+    B, T, H, D = r.shape
+    # the kernel reads packed rows; a strided input is packed here first
+    r, k, v, w, u, states, dy = (t.contiguous() for t in (r, k, v, w, u,
+                                                          states, dy))
+    dS = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+          if dS_T is None else dS_T.contiguous())
+    _check(r, k, v, w, u, dS, chunk, BWD_NAME)
+    for name, t, shape in (("dy", dy, (B, T, H, D)),
+                           ("states", states, (B, H, T // chunk, D, D))):
+        if t.shape != shape or t.dtype != torch.float32 \
+                or t.device != r.device:
+            raise ValueError(f"{BWD_NAME}: {name} must be fp32 {shape} on "
+                             f"{r.device}; got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    fn = _bind_bwd()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    with build.on_device(r):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                 dS.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dw.data_ptr(), du_part.data_ptr(), ds0.data_ptr(), B, T, H,
+                 D, chunk, stream)
+    if err != 0:
+        what = {-1: "shape refused"}.get(err, f"cudaError {err}")
+        raise RuntimeError(f"{BWD_NAME} launch failed: {what}")
+    build.count_launch(rwkv6_scan_bwd)
+    return dr, dk, dv, dw, du_part.sum(0), ds0
+
+
+rwkv6_scan_bwd.launches = 0
+# what ``RWKV6Scan.backward`` calls, looked up at each call:
+# ``chip_smoke.py`` wraps it to hold every backward call of a train step
+# to ``plain_backward`` on its own inputs
+backward_kernel = rwkv6_scan_bwd
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """``rwkv6_scan`` with its gradient: the forward kernel with the
+    chunk-start states, the backward kernel for every input's gradient.
+    A backward that fails to build or launch raises; it never gives way
+    to autograd of ``plain``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0, chunk):
+        out, stateT, states = _launch(r, k, v, w, u, state0, chunk, True)
+        ctx.save_for_backward(r, k, v, w, u, states)
+        ctx.chunk = chunk
+        return out, stateT
+
+    @staticmethod
+    def backward(ctx, dy, dS_T):
+        r, k, v, w, u, states = ctx.saved_tensors
+        grads = backward_kernel(r, k, v, w, u, states, dy, dS_T,
+                                chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def _dtype(r) -> torch.dtype:
+    """The plain versions' working type: fp32, or fp64 for fp64 inputs
+    (the tests' yardstick)."""
+    return torch.float64 if r.dtype == torch.float64 else torch.float32
+
+
+def _chunk_terms(rb, kb, wb):
+    """One chunk's decays and scaled inputs, as ``plain`` forms them:
+    (A_excl, A_incl, A_end, rA, kA)."""
+    logw = torch.log(wb)
+    cum = torch.cumsum(logw, dim=1)
+    A_excl = torch.exp(cum - logw)           # prod_{s<=t-1}
+    A_incl = torch.exp(cum)                  # prod_{s<=t}
+    kA = kb / torch.clamp(A_incl, min=EPS)
+    return A_excl, A_incl, A_incl[:, -1], rb * A_excl, kA
+
+
 def plain(r, k, v, w, u, state0, *, chunk=64):
     """The plain PyTorch version of ``rwkv6_scan``: per chunk, the
     cumulative per-channel decay, the strictly lower intra-chunk
-    attention, the bonus term and the state update, in fp32."""
+    attention, the bonus term and the state update, in fp32 (fp64 for
+    fp64 inputs)."""
     B, T, H, D = r.shape
     chunk = _chunk(T, chunk)
-    r, k, v, w = (a.float() for a in (r, k, v, w))
-    u = u.float()
-    S = state0.float()
+    dt = _dtype(r)
+    r, k, v, w, u, S = (a.to(dt) for a in (r, k, v, w, u, state0))
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=r.device), -1)
     ys = []
     for c0 in range(0, T, chunk):
         rb, kb, vb, wb = (a[:, c0:c0 + chunk] for a in (r, k, v, w))
-        logw = torch.log(wb)
-        cum = torch.cumsum(logw, dim=1)
-        A_excl = torch.exp(cum - logw)           # prod_{s<=t-1}
-        A_incl = torch.exp(cum)                  # prod_{s<=t}
-        A_end = A_incl[:, -1]                    # (B,H,D)
-        rA = rb * A_excl
+        _, _, A_end, rA, kA = _chunk_terms(rb, kb, wb)
         y = torch.einsum("bthk,bhkv->bthv", rA, S)
-        kA = kb / torch.clamp(A_incl, min=1e-24)
         att = torch.einsum("bthk,bshk->bhts", rA, kA)
         att = torch.where(causal[None, None], att, torch.zeros_like(att))
         y = y + torch.einsum("bhts,bshv->bthv", att, vb)
@@ -169,3 +299,146 @@ def plain(r, k, v, w, u, state0, *, chunk=64):
             "bshk,bshv->bhkv", kA * A_end[:, None], vb)
         ys.append(y)
     return torch.cat(ys, 1), S
+
+
+def plain_states(r, k, v, w, state0, *, chunk=64):
+    """The state at the start of every chunk, (B, H, T / chunk, D, D),
+    by ``plain``'s forward sweep: what ``forward_with_states`` gives as
+    its third output, in fp32 (fp64 for fp64 inputs)."""
+    T = r.shape[1]
+    chunk = _chunk(T, chunk)
+    dt = _dtype(r)
+    r, k, v, w, S = (a.to(dt) for a in (r, k, v, w, state0))
+    starts = []
+    for c0 in range(0, T, chunk):
+        starts.append(S)
+        kb, vb, wb = (a[:, c0:c0 + chunk] for a in (k, v, w))
+        _, _, A_end, _, kA = _chunk_terms(r[:, c0:c0 + chunk], kb, wb)
+        S = A_end[..., None] * S + torch.einsum(
+            "bshk,bshv->bhkv", kA * A_end[:, None], vb)
+    return torch.stack(starts, 2)
+
+
+def states_error(states, r, k, v, w, *, chunk, tol) -> float:
+    """The chunk-start ``states`` (the forward kernel's third output)
+    against ``plain_states`` on the same inputs, state0 being
+    ``states[:, :, 0]``: the worst over the chunks of the chunk's max
+    abs error over ``tol`` x max(1, the chunk's max |plain|).  inf where
+    a state is not finite."""
+    if not torch.isfinite(states).all():
+        return float("inf")
+    ref = plain_states(r, k, v, w, states[:, :, 0], chunk=chunk)
+    err = (states - ref).abs().amax((0, 1, 3, 4))
+    top = ref.abs().amax((0, 1, 3, 4)).clamp(min=1.0)
+    return float((err / (tol * top)).max())
+
+
+# a backward gradient leaf's limit (``backward_error``): 3x the fp32
+# ``plain_backward``'s own error against the fp64 one, or this many fp32
+# ulps of the leaf's max |grad|, whichever is larger
+BWD_ULPS = 16
+
+
+def backward_error(grads, r, k, v, w, u, state0, dy, dS_T=None, *, chunk,
+                   states=None) -> tuple[float, float, str]:
+    """(max abs error, worst leaf's error over its limit, that leaf's
+    figures) of ``grads`` = (dr, dk, dv, dw, du, dstate0) against
+    ``plain_backward`` in fp64 on the same inputs, and on the chunk-start
+    ``states`` where given: each leaf within max(3x the fp32
+    ``plain_backward``'s own error there, ``BWD_ULPS`` fp32 ulps of the
+    leaf's max |grad|).  Raises ValueError on a non-finite gradient or
+    one of another shape or type than fp32 ``plain_backward``'s."""
+    ins = (r, k, v, w, u, state0)
+    ref32 = plain_backward(*ins, dy, dS_T, chunk=chunk, states=states)
+    ref64 = plain_backward(
+        *(t.double() for t in ins), dy.double(),
+        None if dS_T is None else dS_T.double(), chunk=chunk,
+        states=None if states is None else states.double())
+    err, frac, worst = 0.0, 0.0, ""
+    for name, g, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate0"),
+                             grads, ref32, ref64):
+        if g.shape != a.shape or g.dtype != a.dtype:
+            raise ValueError(f"{name}: {g.dtype} {tuple(g.shape)}, need "
+                             f"{a.dtype} {tuple(a.shape)}")
+        if not torch.isfinite(g).all():
+            raise ValueError(f"{BWD_NAME}: a non-finite {name}")
+        top = float(b.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 23)
+        own = float((a.double() - b).abs().max())
+        e = float((g.double() - b).abs().max())
+        err = max(err, e)
+        f = e / max(3 * own, BWD_ULPS * ulp)
+        if f >= frac:
+            frac, worst = f, (f"{name}: error {e:.3e}, the fp32 "
+                              f"plain_backward's own {own:.3e}, max "
+                              f"|{name}| {top:.3e}")
+    return err, frac, worst
+
+
+def plain_backward(r, k, v, w, u, state0, dy, dS_T=None, *, chunk=64,
+                   states=None):
+    """The plain PyTorch version of ``rwkv6_scan_bwd``: (dr, dk, dv, dw,
+    du, dstate0) of ``plain`` at ``chunk`` for the output's gradient
+    ``dy`` and the final state's ``dS_T`` (None: zeros), written out as
+    its formulas (no autograd) in fp32 (fp64 for fp64 inputs).  The
+    chunk-start states come from a forward sweep, or from ``states``
+    (B, H, T / chunk, D, D) where given, as the kernel takes them from
+    the forward kernel; then, per chunk in reverse with dS (the gradient
+    of the chunk's end state) carried, and with P = tril_{-1}(rA kA^T),
+    bonus_t = r_t . (u * k_t), E = A_end:
+
+        dv   = P^T dy + bonus * dy + (kA * E) dS
+        dP   = tril_{-1}(dy v^T)
+        drA  = dy S^T + dP kA,      dkA = dP^T rA + E * (v dS^T)
+        dE   = rowsum(S * dS) + sum_s kA_s * (v dS^T)_s
+        dr   = drA * A_excl + (dy . v) u * k,
+        dk   = (dy . v) r * u + dkA / max(A_incl, EPS),
+        du  += sum_t (dy . v) r * k
+        dcum = drA r A_excl + [A_incl >= EPS] (-dkA kA / A_incl) A_incl
+               + [last row] dE * E
+        dw   = (revcumsum(dcum) - drA r A_excl) / w
+        dS  <- rA^T dy + E * dS
+
+    (the clamp passes no gradient where it binds, as ``torch.clamp``
+    and JAX's ``jnp.maximum`` give it)."""
+    B, T, H, D = r.shape
+    chunk = _chunk(T, chunk)
+    dt = _dtype(r)
+    r, k, v, w, u, S, dy = (a.to(dt) for a in (r, k, v, w, u, state0, dy))
+    dS = (torch.zeros((B, H, D, D), dtype=dt, device=r.device)
+          if dS_T is None else dS_T.to(dt))
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=r.device), -1)[None, None]
+    if states is None:
+        states = plain_states(r, k, v, w, S, chunk=chunk)
+    starts = list(states.to(dt).unbind(2))
+    grads = {n: torch.empty_like(r) for n in ("r", "k", "v", "w")}
+    du = torch.zeros_like(u)
+    for c0, S in reversed(list(zip(range(0, T, chunk), starts))):
+        sl = slice(c0, c0 + chunk)
+        rb, kb, vb, wb, dyb = (a[:, sl] for a in (r, k, v, w, dy))
+        A_excl, A_incl, E, rA, kA = _chunk_terms(rb, kb, wb)
+        P = torch.where(causal, torch.einsum("bthk,bshk->bhts", rA, kA), 0)
+        dP = torch.where(causal, torch.einsum("bthv,bshv->bhts", dyb, vb),
+                         0)
+        bonus = torch.einsum("bthk,bthk->bth", rb, u * kb)[..., None]
+        dbonus = (dyb * vb).sum(-1, keepdim=True)              # (b,t,h,1)
+        vdS = torch.einsum("bshv,bhkv->bshk", vb, dS)
+        grads["v"][:, sl] = (torch.einsum("bhts,bthv->bshv", P, dyb)
+                             + bonus * dyb + torch.einsum(
+                                 "bshk,bhkv->bshv", kA * E[:, None], dS))
+        drA = (torch.einsum("bthv,bhkv->bthk", dyb, S)
+               + torch.einsum("bhts,bshk->bthk", dP, kA))
+        dkA = torch.einsum("bhts,bthk->bshk", dP, rA) + E[:, None] * vdS
+        dE = (S * dS).sum(-1) + (kA * vdS).sum(1)
+        m = torch.clamp(A_incl, min=EPS)
+        grads["r"][:, sl] = drA * A_excl + dbonus * (u * kb)
+        grads["k"][:, sl] = dbonus * rb * u + dkA / m
+        du = du + (dbonus * rb * kb).sum((0, 1))
+        dAe = drA * rb * A_excl
+        dcum = dAe + torch.where(A_incl >= EPS, -dkA * (kA / m), 0) * A_incl
+        dcum[:, -1] += dE * E
+        dlogw = dcum.flip(1).cumsum(1).flip(1) - dAe
+        grads["w"][:, sl] = dlogw / wb
+        dS = torch.einsum("bthk,bthv->bhkv", rA, dyb) + E[..., None] * dS
+    return grads["r"], grads["k"], grads["v"], grads["w"], du, dS

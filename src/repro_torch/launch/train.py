@@ -13,8 +13,7 @@ the latest one, the data pipeline's cursor included (the pipeline is
 stateless: the step index is the whole cursor).  The weights are the
 port's ``init_params`` from ``--seed``, so the losses differ from the JAX
 CLI's.  Architectures whose model takes encoder frames or patch
-embeddings are a usage error (exit 2: the pipeline makes tokens only),
-and rwkv or mamba layers are refused by the train step (exit 1).
+embeddings are a usage error (exit 2: the pipeline makes tokens only).
 """
 
 from __future__ import annotations
@@ -64,15 +63,10 @@ def main(argv=None) -> int:
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.models.init import count_params, init_params
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-    from repro_torch.training.train import (TrainConfig, check_trainable,
-                                            make_train_step)
+    from repro_torch.training.train import TrainConfig, make_train_step
 
     if args.tiny:
         cfg = make_tiny(cfg)
-    try:
-        check_trainable(cfg)
-    except ValueError as e:
-        raise SystemExit(f"{ap.prog}: {e}") from None
     tcfg = TrainConfig(
         optimizer=AdamWConfig(lr=args.lr, warmup_steps=args.steps // 10,
                               total_steps=args.steps),

@@ -21,8 +21,10 @@ fp32, and ``(y + D x) * silu(z)`` cast back before ``out_proj``.
 
 A chunk's terms that do not depend on h -- ``exp(dt A)`` and ``(dt x)
 B`` -- are computed for the whole chunk by the same elementwise ops
-before its token loop, so the loop is the two-op recurrence alone and
-the ``C`` contraction runs once a chunk over the states it kept.
+before its token loop, so the loop is the recurrence alone, one
+``addcmul`` a token, and the ``C`` contraction runs once a chunk over
+the states it kept, stacked.  The loop writes no tensor in place and
+uses no ``out=``, so autograd differentiates it (the train step).
 """
 
 from __future__ import annotations
@@ -101,18 +103,15 @@ def mamba_parallel(p, x, cfg: ModelConfig, *, state=None, conv_tail=None):
     for c0 in range(0, T, chunk):
         sl = slice(c0, c0 + chunk)
         # token-major rows (B, di, st), unbound once: the loop itself is
-        # then two launches a token and no indexing
+        # then one launch a token (h = b_t + a_t h) and no indexing
         a = torch.exp(dt[:, sl, :, None] * A).unbind(1)
         b = ((dt[:, sl] * xf[:, sl])[..., None]
              * B_[:, sl, None, :]).unbind(1)
-        hs = torch.empty((chunk, B, di, st), dtype=torch.float32,
-                         device=x.device)
-        for a_t, b_t, h_t in zip(a, b, hs.unbind(0)):
-            torch.mul(a_t, h, out=h_t)
-            h_t.add_(b_t)
-            h = h_t
-        ys.append(torch.einsum("tbis,bts->bti", hs, C[:, sl]))
-    h = h.clone()
+        hs = []
+        for a_t, b_t in zip(a, b):
+            h = torch.addcmul(b_t, a_t, h)
+            hs.append(h)
+        ys.append(torch.einsum("tbis,bts->bti", torch.stack(hs), C[:, sl]))
     y = torch.cat(ys, dim=1)
     return _out(p, y, xf, z, x.dtype), h, conv_tail
 

@@ -7,18 +7,19 @@ after the patch prefix (``cfg.num_patches``), a z-loss, and the MoE
 load-balancing loss times ``aux_loss_weight``, in f32.  Gradients come
 from autograd through ``models.model.train_forward``: on the card its
 attention is the flash kernel with its hand-written backward
-(``kernels.flash_attention.FlashAttention``); a kernel without a backward
-raises rather than cut its output off from the graph.  Microbatches are
+(``kernels.flash_attention.FlashAttention``), an rwkv layer's scan the
+rwkv6_scan kernel with its hand-written backward
+(``kernels.rwkv6_scan.RWKV6Scan``, at chunk 8 in train, as the reference
+chooses), and a mamba layer's token loop plain torch that autograd
+differentiates, as JAX differentiates its ``lax.scan``; a kernel without
+a backward raises rather than cut its output off from the graph.  Microbatches are
 a Python loop summing f32 gradients, then ``/ m``, where JAX scans.
 
 On one card there is no mesh: ``mesh`` and ``rules`` are accepted and
 must be None (the logical-axis rules are a no-op on one card; a mesh
 goes with ``sharding.py``, ROADMAP Queue 1).  ``compress_pod_grads``
 takes effect only with a ``group`` (a ``torch.distributed`` process
-group), as the JAX step's needs a mesh with a "pod" axis.  rwkv and mamba
-layers are refused before any step, on every device: the rwkv6_scan
-kernel has no backward yet and the mamba token loop writes through
-``out=``, which autograd refuses (ROADMAP Queue 1 item 8).
+group), as the JAX step's needs a mesh with a "pod" axis.
 """
 
 from __future__ import annotations
@@ -46,20 +47,9 @@ class TrainConfig:
     compress_pod_grads: bool = False  # int8 error feedback over a group
 
 
-UNTRAINED = ("rwkv", "mamba")
-
-
 def check_trainable(cfg: ModelConfig, mesh=None, rules=None):
-    """Raise for what the port cannot train: rwkv and mamba layers
-    (``ValueError``), a mesh or logical-axis rules
-    (``NotImplementedError``)."""
-    kinds = {ls.mixer for b in (*cfg.blocks, *cfg.encoder_blocks)
-             for ls in b.layers}
-    if kinds & set(UNTRAINED):
-        raise ValueError(
-            f"{cfg.name}: training {sorted(kinds & set(UNTRAINED))} layers "
-            "is not ported (ROADMAP Queue 1 item 8: the rwkv6_scan "
-            "backward kernel, a differentiable mamba loop)")
+    """Raise ``NotImplementedError`` for what one card cannot train on: a
+    mesh or logical-axis rules."""
     if mesh is not None or rules is not None:
         raise NotImplementedError(
             "a mesh or logical-axis rules: one card has neither (ROADMAP "

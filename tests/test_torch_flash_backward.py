@@ -132,11 +132,20 @@ def _kernel_calls():
                                   "spec_accept", "rwkv6_scan", "int8_matmul"])
 def test_kernels_without_a_backward_refuse_autograd(name):
     """Under grad mode, with an input that requires grad, every kernel
-    wrapper but flash's raises ``ValueError`` naming itself and ROADMAP
-    Queue 1, before any device check: its output would be cut off from
-    the graph with no error.  Under ``no_grad`` the refusal is not the
-    one raised (the CPU tensors then meet the device check)."""
+    wrapper but flash's and rwkv6_scan's raises ``ValueError`` naming
+    itself and ROADMAP Queue 1, before any device check: its output
+    would be cut off from the graph with no error.  Under ``no_grad`` the
+    refusal is not the one raised (the CPU tensors then meet the device
+    check).  rwkv6_scan has its backward kernel (``RWKV6Scan``): under
+    grad it meets the device check alone, as under ``no_grad``."""
     call = dict(_kernel_calls())[name]
+    if name == "rwkv6_scan":
+        for grad in (True, False):
+            with torch.set_grad_enabled(grad):
+                with pytest.raises(ValueError, match="^rwkv6_scan kernel "
+                                                     "needs CUDA tensors"):
+                    call()
+        return
     with pytest.raises(ValueError, match=rf"^{name}: the CUDA kernel has no "
                                          r"backward.*ROADMAP Queue 1"):
         call()

@@ -13,7 +13,11 @@ Tolerances, each against JAX:
     yardstick is a float64 run of the port (its norms, attention scores
     and router stay f32, as the reference keeps them): JAX's f32 grads
     must lie within 1e-3 of it (the two packages compute one function),
-    and the port's f32 grads within max(1e-4, 2x JAX's distance).  Each
+    and the port's f32 grads within max(1e-4, 2x JAX's distance).  Where
+    a config's fixture measures the function's own f32 sensitivity
+    (``tests/test_torch_train_parity_recurrent.py``: jamba's, the
+    smaller of the port's and JAX's), 3x that sensitivity joins the max
+    of the tolerance, and 2x it that of the port's distance.  Each
     package's f32 gradients carry their own rounding of the same size
     (measured: JAX 2.4e-5 / port 1.7e-5 on llama, 1.8e-4 / 1.5e-4 on the
     MoE config, 6.5e-4 / 7.0e-4 on whisper's embedding), so 1e-4 between
@@ -142,7 +146,7 @@ def pair(request):
 
 
 def test_loss_terms_match_jax(pair):
-    """loss, ce, z_loss and aux within 1e-5 relative; the MoE config's
+    """loss, ce, z_loss and aux within 1e-5 relative; an MoE config's
     aux is live (the port no longer drops it)."""
     got = {"loss": pair["tloss"], **pair["tmet"]}
     want = {"loss": pair["jloss"], **pair["jmet"]}
@@ -150,7 +154,8 @@ def test_loss_terms_match_jax(pair):
     for k in want:
         assert abs(got[k] - want[k]) <= LOSS_REL * max(abs(want[k]), 1e-30), \
             (k, got[k], want[k])
-    if pair["name"] == "granite-moe-1b-a400m":
+    cfg = pair["tcfg"]
+    if "moe" in {ls.ffn for b in cfg.blocks for ls in b.layers}:
         assert want["aux"] > 0.5
     else:
         assert want["aux"] == got["aux"] == 0.0
@@ -158,7 +163,9 @@ def test_loss_terms_match_jax(pair):
 
 def grad_tols(pair) -> dict:
     """Each leaf's gradient tolerance (relative to its max |grad|) by the
-    rule of the module docstring: max(1e-4, 3x JAX's own f32 error)."""
+    rule of the module docstring: max(1e-4, 3x JAX's own f32 error), and
+    3x the leaf's measured f32 sensitivity where the pair carries one
+    (``sens``, ``tests/test_torch_train_parity_recurrent.py``)."""
     want = _keyed(pair["jgrads"])
     out = {}
     for k, w in want.items():
@@ -166,7 +173,7 @@ def grad_tols(pair) -> dict:
         top = max(float(np.abs(ref).max()), 1e-30)
         own = float(np.abs(w - ref).max()) / top
         assert own <= JAX_OWN_MAX, (k, own)
-        out[k] = max(GRAD_REL, 3 * own)
+        out[k] = max(GRAD_REL, 3 * own, 3 * pair.get("sens", {}).get(k, 0.0))
     return out
 
 

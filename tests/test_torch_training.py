@@ -1,8 +1,9 @@
 """The port's training substrate, as ``tests/test_training.py`` holds the
 JAX package's: convergence, microbatch equivalence, checkpoint restart
-(bit for bit), checkpoint GC, error-feedback compression; plus the
-refusals (rwkv and mamba layers, a group of more than one), the train
-CLI with a resume, and the pieces shared with the JAX package:
+(bit for bit), checkpoint GC, error-feedback compression; plus tiny
+rwkv and jamba steps (the recurrent layers train), the refusals (a mesh,
+a group of more than one), the train CLI with a resume and on rwkv, and
+the pieces shared with the JAX package:
 ``Pipeline`` batches byte-equal, checkpoints that restore across the
 packages bit for bit under equal manifest keys, ``topk_sparsify``.
 
@@ -183,18 +184,28 @@ def test_compressed_step_with_a_group_of_one(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-v0.1-52b"])
 def test_train_step_refuses_recurrent_layers(arch):
-    """rwkv and mamba layers are refused before anything moves: the
-    params and the optimizer state are untouched."""
+    """rwkv and mamba layers train (the refusal this test held is gone):
+    a tiny step, through ``make_train_step`` and ``train_step`` alike,
+    gives a finite loss and grad norm and moves the params, the mixers'
+    own among them, while the inputs stay untouched."""
     cfg = make_tiny(get(arch))
     params = _params(0, cfg)
     opt = init_opt_state(params)
     before = [a.clone() for a in leaves({"p": params, "o": opt})]
-    batch = {"tokens": torch.zeros((2, 64), dtype=torch.int32)}
-    tc = TrainConfig()
-    with pytest.raises(ValueError, match="ROADMAP Queue 1"):
-        train_step(params, opt, batch, cfg=cfg, tcfg=tc)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1"):
-        make_train_step(cfg, tc)
+    batch = {k: torch.from_numpy(v) for k, v in Pipeline(
+        DataConfig(cfg.vocab_size, 64, 2)).batch(0).items()}
+    tc = TrainConfig(AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    p1, _, m = make_train_step(cfg, tc)(params, opt, batch)
+    p2, _, _ = train_step(params, opt, batch, cfg=cfg, tcfg=tc)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(p1), leaves(p2)))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"])) and float(m["grad_norm"]) > 0
+    mixer = "rwkv" if arch == "rwkv6-7b" else "mamba"
+    moved = {k for (k, a), b in zip(leaves_with_path(p1), leaves(params))
+             if not torch.equal(a, b)}
+    assert any(f"['{mixer}']" in k for k in moved), sorted(moved)[:5]
+    assert len(moved) > len(leaves(params)) // 2
+    assert all(torch.isfinite(a.float()).all() for a in leaves(p1))
     assert all(torch.equal(a, b) for a, b in
                zip(before, leaves({"p": params, "o": opt})))
 
@@ -207,7 +218,9 @@ def test_train_step_refuses_a_mesh():
 def test_train_cli_runs_and_resumes(tmp_path, capsys):
     """``launch.train.main`` on the CPU prints the JAX CLI's lines,
     checkpoints, and a second run with ``--resume`` continues from the
-    last checkpoint; a cuda run without a card exits 1."""
+    last checkpoint; ``--arch rwkv6-7b`` trains (a 24-token sequence:
+    two chunks of 8 and a ragged tail); a cuda run without a card exits
+    1."""
     ck = str(tmp_path / "ck")
 
     def argv(steps, *more):
@@ -228,6 +241,13 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
     assert [ln.split()[1] for ln in out if ln.startswith("step ")] \
         == ["6", "7"]
     assert disk.latest_step(ck) == 8
+    assert train_cli.main(["--arch", "rwkv6-7b", "--tiny", "--device",
+                           "cpu", "--steps", "2", "--batch", "2", "--seq",
+                           "24", "--log-every", "1"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("training rwkv6-7b-tiny: ")
+    assert len([ln for ln in out if ln.startswith("step ")]) == 2
+    assert out[-1] == "done"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit) as e:
             train_cli.main(["--tiny", "--steps", "1"])
