@@ -27,10 +27,11 @@ the result line):
                cross-attention (D 64, Sq 416 over 1536 frames), dense
                decode over its cross cache (position 2^30), each case in
                its kernel's row of the JSON line under "cases"; flash's
-               backward kernel (``flash_attention_bwd``, the port's own:
+               backward kernels (``flash_attention_bwd``, the port's own:
                no Pallas counterpart) at llama-1.5b's, whisper-base's
                encoder and cross, gemma3-4b's local (D 256), stablelm-12b's
-               (D 160) and gemma2-27b's softcapped layer shapes, each
+               (D 160) and gemma2-27b's softcapped layer shapes and at
+               llama-1.5b's train batch of 4, each naming its design, each
                gradient element within 4 bf16 ulps of the magnitude of the
                terms it sums (``plain_backward(..., terms=True)``),
                bit-equal on a second call, beside SDPA's backward, with the
@@ -215,7 +216,9 @@ the result line):
                             step with every flash call held to its plain
                             version, each remat recompute to its first
                             pass bit for bit and every backward call to
-                            ``plain_backward``; a profiled step; launches
+                            ``plain_backward`` (the kernel phase's element
+                            rule plus 2 fp32 ulps of the terms of the dot
+                            products dP and delta); a profiled step; launches
                             exactly 48 flash and 24 backward a pass
                train_whisper whisper-base at full width and depth, 4 x 1536
                             frames and 416 tokens: two steps, the second
@@ -250,6 +253,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -269,7 +273,11 @@ PEAK_BYTES = 3.35e12
 BF16_TOL = 2e-2            # kernel vs plain, per element, abs
 SPEC_TOL = 1e-6            # spec_accept's dist, kernel vs plain, abs
 RWKV_TOL = 5e-4            # rwkv6_scan output and state, abs (JAX suite's)
-INT8_REL = 5e-3            # int8_matmul, relative to max |plain| (JAX suite's)
+# int8_matmul, relative to max |plain| (JAX suite's), and never under one
+# ulp of the output at max |plain| (``out_ulp``): the kernel and the plain
+# version sum exact products in fp32 in different orders and may round an
+# element to neighbouring values (``scripts/int8_rule.py``)
+INT8_REL = 5e-3
 # the kernel no model path calls: held by its kernel phase alone
 PHASE_ONLY = ("int8_matmul",)
 # One decode step's logits, kernels vs plain versions, relative to the
@@ -354,6 +362,12 @@ def bound(flops: float, nbytes: float,
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def out_ulp(m: float, dtype) -> float:
+    """One ulp of ``dtype`` (bf16 or fp32) at magnitude ``m`` > 0."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    return math.ldexp(1.0, math.frexp(m)[1] - 1 - bits)
 
 
 def row_tol(ref) -> torch.Tensor:
@@ -557,33 +571,50 @@ def wide_flash(fa, gen) -> list:
 # flash backward cases: (label, B, Sq, Skv, H, KV, D, causal, window,
 # softcap): llama-1.5b's layer, whisper-base's encoder and cross shape
 # (full mode, D 64), gemma3-4b's local layer (D 256, G 2), stablelm-12b's
-# (D 160, G 4) and gemma2-27b's softcapped one (D 128, G 2)
+# (D 160, G 4), gemma2-27b's softcapped one (D 128, G 2) and llama-1.5b's
+# layer at the train path's batch of 4
 BWD_CASES = (("llama-1.5b", 1, 1536, 1536, 16, 8, 128, True, 0, 0.0),
              ("whisper-base encoder", 4, 1536, 1536, 8, 8, 64, False, 0, 0.0),
              ("whisper-base cross", 4, 416, 1536, 8, 8, 64, False, 0, 0.0),
              ("gemma3-4b local", 1, 1536, 1536, 8, 4, 256, True, 1024, 0.0),
              ("stablelm-12b", 1, 1536, 1536, 32, 8, 160, True, 0, 0.0),
              ("gemma2-27b softcap", 1, 1536, 1536, 32, 16, 128, True, 0,
-              50.0))
+              50.0),
+             ("llama-1.5b train", 4, 1536, 1536, 16, 8, 128, True, 0, 0.0))
 # a gradient element's limit: 4 bf16 ulps (4 x 2^-7, relative) of the
-# magnitude of the terms it sums (``plain_backward(..., terms=True)``)
+# magnitude of the terms it sums (``plain_backward(..., terms=True)``).
+# The shadowed train steps add 2 fp32 ulps (2 x 2^-23) of the magnitude
+# of the terms of the dot products dP = dO V^T and delta = rowsum(dO o O)
+# carried into it: there a trained model's one-hot rows make dO
+# orthogonal to O and to V's rows, so those two cancel to their fp32
+# rounding in any fp32 implementation, ``plain_backward`` against float64
+# included (``scripts/flash_bwd_rule.py``)
 BWD_ULPS = 4 * 2.0 ** -7
+DOT_ULPS = 2 * 2.0 ** -23
 
 
-def bwd_err(grads, ref, terms) -> tuple[float, float, float]:
+def bwd_err(grads, ref, terms, dots=None) -> tuple[float, float, float,
+                                                   float]:
     """(max abs error, worst error over its element's limit, worst error
-    over the row rule's limit) of dQ, dK, dV against ``plain_backward``.
-    The row rule (``row_tol``: 4 ulps of the row's max, capped at 2e-2)
-    is reported, not held: a row whose terms cancel (a causal row 0,
-    whose dS is 0 in exact arithmetic) has no magnitude of its own, and
-    a gradient's rows pass the 2e-2 cap (|dV| to 9.5 at these shapes)."""
-    err = frac = row = 0.0
-    for g, r, t in zip(grads, ref, terms):
+    over the bf16 rule alone, worst error over the row rule's limit) of
+    dQ, dK, dV against ``plain_backward``.  The element's limit is the
+    bf16 rule alone, or with ``dots`` (the dot products' magnitudes) that
+    plus their ``DOT_ULPS`` part.  The row rule (``row_tol``: 4 ulps of
+    the row's max, capped at 2e-2) is reported, not held: a row whose
+    terms cancel (a causal row 0, whose dS is 0 in exact arithmetic) has
+    no magnitude of its own, and a gradient's rows pass the 2e-2 cap
+    (|dV| to 9.5 at these shapes)."""
+    err = frac = part = row = 0.0
+    for i, (g, r, t) in enumerate(zip(grads, ref, terms)):
         e = (g.float() - r.float()).abs()
         err = max(err, float(e.max()))
-        frac = max(frac, float((e / (BWD_ULPS * t).clamp(min=1e-30)).max()))
+        lim = BWD_ULPS * t
+        part = max(part, float((e / lim.clamp(min=1e-30)).max()))
+        if dots is not None:
+            lim = lim + DOT_ULPS * dots[i]
+        frac = max(frac, float((e / lim.clamp(min=1e-30)).max()))
         row = max(row, float((e.amax((-2, -1)) / row_tol(r)).max()))
-    return err, frac, row
+    return err, frac, part, row
 
 
 def bwd_inputs(B, Sq, Skv, H, KV, D, gen):
@@ -594,18 +625,45 @@ def bwd_inputs(B, Sq, Skv, H, KV, D, gen):
     return q, k, v, do
 
 
+def kernel_device_ms(fn, iters=10) -> dict:
+    """The profiler's device time per call of ``fn`` by kernel name
+    (template arguments dropped), over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.match(r"\w*", e.key.removeprefix(
+                "void (anonymous namespace)::")).group()
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return {k: round(v / iters, 4) for k, v in out.items()}
+
+
 def check_flash_bwd(fa, gen) -> dict:
-    """The backward kernel (``csrc/flash_attention_bwd.cu``) at
+    """The backward kernels (``csrc/flash_attention_bwd.cu``) at
     ``BWD_CASES``: the forward with and without its LSE output bit-equal
     (and timed at llama's shape), dQ, dK, dV against ``plain_backward``
     on the same inputs by ``bwd_err``'s element rule, bit-equal on a
-    second call, and timed beside the plain version, SDPA's backward (the
-    library yardstick, without the softcap SDPA lacks; a band mask for
-    the window) and the bound: 2.5x the forward's products, or the bytes
-    of q, k, v, O, dO, LSE read and dQ, dK, dV written."""
+    second call, and timed (events, and the profiler's device time of
+    each kernel) beside the plain version, SDPA's backward (the library
+    yardstick, without the softcap SDPA lacks; a band mask for the
+    window) and the bound: 2.5x the forward's products, or the bytes of
+    q, k, v, O, dO, LSE read and dQ, dK, dV written.  Each case names the
+    design it ran (``bwd_design``)."""
+    from repro_torch.kernels import build
+    for ln in ptxas_lines(build.logs.get("flash_attention_bwd", ""),
+                          "dkdv_wgmma|dq_wgmma|dkdv_mma|dq_mma|bwd_delta",
+                          {}):
+        log(f"flash_attention_bwd build: {ln}")
     cases, row = [], None
     for label, B, Sq, Skv, H, KV, D, causal, window, softcap in BWD_CASES:
         kw = dict(causal=causal, window=window, softcap=softcap)
+        design = fa.bwd_design(B, Skv, KV, D)
         q, k, v, do = bwd_inputs(B, Sq, Skv, H, KV, D, gen)
         o, lse = fa.forward_with_lse(q, k, v, **kw)
         if not torch.equal(o, fa.flash_attention(q, k, v, **kw)):
@@ -613,9 +671,10 @@ def check_flash_bwd(fa, gen) -> dict:
                                  "differs from O without it")
         grads = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
         again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-        *ref, terms = fa.plain_backward(q, k, v, o, do, terms=True, **kw)
+        *ref, terms, _ = fa.plain_backward(q, k, v, o, do, terms=True,
+                                           **kw)
         torch.cuda.synchronize()
-        err, frac, rowf = bwd_err(grads, ref, terms)
+        err, frac, _, rowf = bwd_err(grads, ref, terms)
         finite = all(bool(torch.isfinite(g).all()) for g in grads)
         if not finite or frac > 1.0:
             raise AssertionError(f"flash bwd {label}: max_abs_err {err} at "
@@ -626,6 +685,8 @@ def check_flash_bwd(fa, gen) -> dict:
         del again, ref, terms
         ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
                                                     **kw))
+        dev = kernel_device_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, do, lse, **kw))
         plain_ms = time_ms(lambda: fa.plain_backward(q, k, v, o, do, **kw),
                            iters=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
@@ -644,17 +705,19 @@ def check_flash_bwd(fa, gen) -> dict:
         nbytes = 2 * B * D * (4 * Sq * H + 4 * Skv * KV) + 4 * B * H * Sq
         bms, by = bound(flops, nbytes)
         line = (f"flash bwd {label} B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
-                f"D={D} {kw}: max_abs_err={err:.3e} ({frac:.3f} x its "
-                f"element's limit; {rowf:.2f} x the row rule's), bit-equal "
-                f"on a second call; O bit-equal with and without the LSE | "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+                f"D={D} {kw} ({design}): max_abs_err={err:.3e} ({frac:.3f} "
+                f"x its element's limit; {rowf:.2f} x the row rule's), "
+                f"bit-equal on a second call; O bit-equal with and without "
+                f"the LSE | kernel {ms:.4f} ms (profiler device ms by "
+                f"kernel {dev}), plain {plain_ms:.4f} ms, sdpa backward "
                 f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
         case = dict(case=label, B=B, Sq=Sq, Skv=Skv, H=H, KV=KV, D=D,
                     causal=causal, window=window, softcap=softcap,
-                    max_abs_err=err, limit_frac=frac, row_rule_frac=rowf,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=lib_ms)
+                    design=design, max_abs_err=err, limit_frac=frac,
+                    row_rule_frac=rowf, ms=ms,
+                    device_ms=dev, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms)
         if row is None:
             # row 1's shape: the forward's time with and without the LSE
             fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
@@ -1578,11 +1641,11 @@ def check_int8(im, gen) -> dict:
     """int8_matmul against its plain version at rwkv6-7b's channel-mix
     shapes, wk (4096 -> 14336) and wv (14336 -> 4096), at M = 4 (decode,
     the splitk design) and M = 1536 (prefill, the wgmma design), bf16 x,
-    plus f32-x cases: within 5e-3 of max |plain|, bit-equal on a second
-    call, each on the design its shape routes to.  All four bf16 shapes
-    are timed beside the library call the kernel stands for (a bf16
-    matmul of the dequantised weights, scaled), with the profiler's
-    device time of both."""
+    plus f32-x cases: within max(5e-3, one output ulp) of max |plain|,
+    bit-equal on a second call, each on the design its shape routes to.
+    All four bf16 shapes are timed beside the library call the kernel
+    stands for (a bf16 matmul of the dequantised weights, scaled), with
+    the profiler's device time of both."""
     from repro_torch.kernels import build
     for ln in ptxas_lines(build.logs.get("int8_matmul", ""),
                           "wgmma_kernel|splitk_kernel|splitk_combine|"
@@ -1603,8 +1666,8 @@ def check_int8(im, gen) -> dict:
         ran = [r for r, n in im.int8_matmul.routes.items() if n > before[r]]
         ref = im.plain(x, wq, ws)
         torch.cuda.synchronize()
-        err = max_err(o, ref)
-        rel = err / float(ref.float().abs().max())
+        err, top = max_err(o, ref), float(ref.float().abs().max())
+        rel, tol = err / top, max(INT8_REL, out_ulp(top, dtype) / top)
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
         design = im.route(M, N, K, dtype, True)
         if dtype == torch.bfloat16 and design != want[M]:
@@ -1614,16 +1677,18 @@ def check_int8(im, gen) -> dict:
             raise AssertionError(f"int8_matmul {sh} M={M}: launched {ran}, "
                                  f"route says {design}")
         if not torch.isfinite(o.float()).all() or o.dtype != dtype \
-                or rel > INT8_REL:
+                or rel > tol:
             raise AssertionError(f"int8_matmul {sh} M={M} {dtype}: "
-                                 f"rel err {rel} > {INT8_REL}")
+                                 f"rel err {rel} > {tol}")
         if not torch.equal(o, im.int8_matmul(x, wq, ws)):
             raise AssertionError(f"int8_matmul {sh} M={M} {dtype} "
                                  f"({design}): a second call gave other "
                                  "bits")
         line = (f"int8_matmul {sh} M={M} K={K} N={N} x {str(dtype)[6:]}: "
                 f"design {design}, max_abs_err / max |plain| = {rel:.3e} "
-                f"(tol {INT8_REL}), bit-equal on a second call")
+                f"(tol {tol:.4e}: max(5e-3, one output ulp at max |plain| "
+                f"{top:g}); {err / out_ulp(top, dtype):.2f} of that ulp), "
+                f"bit-equal on a second call")
         if dtype == torch.bfloat16:
             def kern():
                 return im.int8_matmul(x, wq, ws)
@@ -4969,13 +5034,16 @@ class ShadowedTrain(Shadowed):
     on the same inputs, bit for bit; every backward call
     (``flash_attention.backward_kernel``, which ``FlashAttention`` looks
     up at each call) is held to ``plain_backward`` on its own inputs by
-    ``bwd_err``'s element rule.  ``bwd`` (backward calls), ``bwd_worst``,
+    ``bwd_err``'s element rule with the dot products' part (``DOT_ULPS``).
+    ``bwd`` (backward calls), ``bwd_worst`` (and ``bwd_part``, over the
+    bf16 rule alone),
     ``recomputed`` (recomputes matched bit for bit) and ``pending``
     (first-pass calls no recompute matched) are kept."""
 
     def __init__(self):
         super().__init__()
         self.bwd, self.bwd_worst, self.recomputed = 0, 0.0, 0
+        self.bwd_part = 0.0     # the worst over the bf16 rule alone
         self.pending = []       # (q, k, v, O) of first-pass flash calls
 
     def call(self, name, orig, q, k, v, *args, **kw):
@@ -4998,12 +5066,13 @@ class ShadowedTrain(Shadowed):
     def backward(self, q, k, v, o, do, lse, **kw):
         grads = self.bwd_kernel(q, k, v, o, do, lse, **kw)
         with torch.no_grad():
-            *ref, terms = self.fa.plain_backward(q, k, v, o, do, terms=True,
-                                                 **kw)
-            err, frac, _ = bwd_err(grads, ref, terms)
-        del ref, terms
+            *ref, terms, dots = self.fa.plain_backward(
+                q, k, v, o, do, terms=True, **kw)
+            err, frac, part, _ = bwd_err(grads, ref, terms, dots)
+        del ref, terms, dots
         self.bwd += 1
         self.bwd_worst = max(self.bwd_worst, frac)
+        self.bwd_part = max(self.bwd_part, part)
         if not all(bool(torch.isfinite(g).all()) for g in grads) \
                 or frac > 1.0:
             raise AssertionError(f"flash_attention_bwd in the model: "
@@ -5216,7 +5285,8 @@ def run_train() -> dict:
         f"its first pass bit for bit, and every backward call held to "
         f"plain_backward ({shadow.bwd} calls, worst element at "
         f"{shadow.bwd_worst:.3f} x its limit: 4 bf16 ulps of the terms it "
-        f"sums)")
+        f"sums and 2 fp32 ulps of those of the dot products dP and delta "
+        f"in it; {shadow.bwd_part:.3f} x the bf16 rule alone)")
 
     batch = train_batch(pipe, TRAIN_STEPS + 2)
     torch.cuda.synchronize()
@@ -5285,7 +5355,8 @@ def run_train_whisper() -> dict:
         f"calls (encoder full mode, causal, cross Sq {WHISPER_TOKENS} over "
         f"1536) at worst {shadow.worst:.3f} x their limit, "
         f"{shadow.recomputed} recomputes bit for bit, {shadow.bwd} backward "
-        f"calls at worst {shadow.bwd_worst:.3f} x theirs")
+        f"calls at worst {shadow.bwd_worst:.3f} x theirs "
+        f"({shadow.bwd_part:.3f} x the bf16 rule alone)")
     counts = read_counts()
     check_train_launches("train_whisper", counts, layers, 2)
     del params, opt
@@ -5664,7 +5735,8 @@ def main() -> int:
     log(f"build: {len(build.KERNELS)} kernels in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process each)")
     for name, text in build.logs.items():
-        if name in ("int8_matmul", "rwkv6_scan", "spec_verify"):
+        if name in ("int8_matmul", "rwkv6_scan", "spec_verify",
+                    "flash_attention_bwd"):
             continue      # their checks print them, by kernel
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:

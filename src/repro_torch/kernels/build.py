@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface (``extern "C"`` launchers
 that return the ``cudaError_t``), is compiled for ``sm_90a`` into its own
 shared library and bound with ``ctypes``.  Libraries land in
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads at once.  Nothing here
-runs at import time: the CPU tests import every module on machines that
-have no ``nvcc``.
+``.gitignore``), named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so a changed source or header
+rebuilds and an unchanged one loads at once.  Nothing here runs at
+import time: the CPU tests import every module on machines that have no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers too: an edited ``csrc/*.cuh`` rebuilds every library
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -137,7 +137,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0,
     """dQ, dK, dV of ``flash_attention`` (bf16, q's and k's shapes) from
     the forward's inputs, its output ``o``, its LSE and the output's
     gradient ``do``.  One call launches the backward's three kernels
-    (delta, dK/dV, dQ); it counts once."""
+    (delta, dK/dV, dQ; ``bwd_design`` names them); it counts once."""
     _check(q, k, v, BWD_NAME)
     # the kernel reads packed rows; a non-contiguous input is packed here
     # first, then held to it (never a fall back)
@@ -160,16 +160,21 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0,
     fn = _bind_bwd()
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # the kernels' workspace: each row's LSE in the log2 domain and its
+    # delta = rowsum(dO o O), padded to whole 128-row tiles
+    ws = torch.empty((2, B, H, bwd_rows(Sq)), dtype=torch.float32,
+                     device=q.device)
     with build.on_device(q):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), ws.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, Sq, Skv, H, KV, D, int(bool(causal)), int(window),
                  float(softcap), float(D ** -0.5), stream)
     if err != 0:
-        raise RuntimeError(f"{BWD_NAME} launch failed: cudaError {err}")
+        why = _BWD_REFUSALS.get(err)
+        raise RuntimeError(f"{BWD_NAME} launch failed: cudaError {err}"
+                           + (f" ({why})" if why else ""))
     build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
@@ -179,6 +184,52 @@ flash_attention_bwd.launches = 0
 # ``chip_smoke.py`` wraps it to hold every backward call of a train step
 # to ``plain_backward`` on its own inputs
 backward_kernel = flash_attention_bwd
+
+
+# the backward library's own codes past the cudaError_t values
+_BWD_REFUSALS = {-2: "tensor map refused",
+                 -3: "the card's SM count could not be read"}
+
+
+def _bwd_export(symbol: str, nargs: int):
+    """One of the backward library's int-valued exports (``symbol``,
+    ``nargs`` int arguments); it needs the built library, so the card."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(build.load(BWD_NAME), symbol)
+        fn.argtypes = [ctypes.c_int] * nargs
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
+
+
+def bwd_design(B: int, Skv: int, KV: int, D: int) -> str:
+    """The design ``flash_attention_bwd`` runs at this shape, by the
+    source's own rule: wgmma products fed by a TMA ring at D 64 and 128,
+    the dK/dV kernel on CTAs of 128 keys or, where those would leave the
+    card's SMs short of two CTAs each, of 64 (unless ``set_bwd_keys``
+    chose one); the mma.sync kernels at D 160 and 256, where a
+    warpgroup's dK and dV accumulators would not fit the registers."""
+    keys = _bwd_export("flash_attention_bwd_design", 4)(B, Skv, KV, D)
+    if keys == -1:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if keys < 0:
+        raise RuntimeError(f"{BWD_NAME}: {_BWD_REFUSALS[keys]}")
+    return f"wgmma, {keys}-key dK/dV CTAs" if keys else "mma.sync"
+
+
+def set_bwd_keys(keys: int) -> None:
+    """Make every later backward call at D 64 / 128 run its dK/dV kernel
+    on CTAs of ``keys`` keys (64 or 128), or by the grid rule again (0):
+    for timing the two designs at one shape."""
+    if _bwd_export("flash_attention_bwd_set_keys", 1)(keys) != 0:
+        raise ValueError(f"dK/dV keys a CTA: 0, 64 or 128, not {keys}")
+
+
+def bwd_rows(Sq: int) -> int:
+    """The rows of the backward's workspace a (batch, head), as the source
+    pads them (Sq rounded up to a whole 128-row tile)."""
+    return _bwd_export("flash_attention_bwd_workspace_rows", 1)(Sq)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -210,7 +261,8 @@ def plain_backward(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
                    terms=False):
     """The plain PyTorch version of ``flash_attention_bwd``: dQ, dK, dV
     of ``plain`` from its inputs, its output ``o`` and the output's
-    gradient ``do``, written out in fp32 (no autograd):
+    gradient ``do``, written out in fp32, or in float64 for float64
+    inputs (no autograd):
 
         x = s * scale (or c tanh(s scale / c)),  p = softmax(x) under the
         mask,  dV = P^T dO,  dP = dO V^T,  delta = rowsum(dO o O),
@@ -218,19 +270,28 @@ def plain_backward(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
         dK = dS^T Q,
 
     GQA's query heads summed into their kv head.  Returned in the
-    inputs' dtypes; with ``terms`` also, in fp32, the magnitude of the
+    inputs' dtypes; with ``terms`` also, in the working type, the
+    magnitude of the
     terms each element sums: M |K|, M^T |Q| and P^T |dO|, where M = P
     (|dP| + |delta|) * scale (* (1 - tanh^2)) is dS's with the terms of
     dP - delta kept apart.  They bound the rounding of a kernel that
     sums them: a row whose terms cancel (a causal row 0, whose dS is 0 in
     exact arithmetic, a rounding residue in any kernel) has no magnitude
-    of its own to be held to."""
+    of its own to be held to.  Then the same carried from the terms of
+    the two dot products that enter dS, dP = dO V^T and delta =
+    rowsum(dO o O): N |K|, N^T |Q| and 0 for dV, where
+    N = P (|dO| |V|^T + rowsum(|dO| o |O|)) * scale (* (1 - tanh^2)).
+    Their fp32 sums round relative to these, not to |dP| and |delta|:
+    where dO is orthogonal to O and to V's rows (one-hot rows of a
+    trained model's attention) the two cancel to nothing and carry only
+    that rounding, in any fp32 implementation, this function's too."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G, scale = H // KV, D ** -0.5
-    qf = q.float().reshape(B, Sq, KV, G, D)
-    kf, vf = k.float(), v.float()
-    dof = do.float().reshape(B, Sq, KV, G, D)
+    wt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(wt).reshape(B, Sq, KV, G, D)
+    kf, vf = k.to(wt), v.to(wt)
+    dof = do.to(wt).reshape(B, Sq, KV, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
     t = None
     if softcap:
@@ -247,7 +308,7 @@ def plain_backward(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
-    delta = (dof * o.float().reshape(B, Sq, KV, G, D)).sum(-1)   # (B,Sq,KV,G)
+    delta = (dof * o.to(wt).reshape(B, Sq, KV, G, D)).sum(-1)   # (B,Sq,KV,G)
     delta = delta.permute(0, 2, 3, 1)[..., None]
     ds = p * (dp - delta) * scale
     if t is not None:
@@ -260,7 +321,17 @@ def plain_backward(q, k, v, o, do, *, causal=True, window=0, softcap=0.0,
     ds = p * (dp.abs() + delta.abs()) * scale
     if t is not None:
         ds = ds * (1 - t * t)
-    return out + ((torch.einsum("bhgqk,bkhd->bqhgd", ds, kf.abs())
-                   .reshape(B, Sq, H, D),
-                   torch.einsum("bhgqk,bqhgd->bkhd", ds, qf.abs()),
-                   torch.einsum("bhgqk,bqhgd->bkhd", p, dof.abs())),)
+    mags = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kf.abs())
+            .reshape(B, Sq, H, D),
+            torch.einsum("bhgqk,bqhgd->bkhd", ds, qf.abs()),
+            torch.einsum("bhgqk,bqhgd->bkhd", p, dof.abs()))
+    dn = ((dof.abs() * o.to(wt).abs().reshape(B, Sq, KV, G, D)).sum(-1)
+          .permute(0, 2, 3, 1)[..., None])
+    dn = p * (torch.einsum("bqhgd,bkhd->bhgqk", dof.abs(), vf.abs()) + dn) \
+        * scale
+    if t is not None:
+        dn = dn * (1 - t * t)
+    return out + (mags, (torch.einsum("bhgqk,bkhd->bqhgd", dn, kf.abs())
+                         .reshape(B, Sq, H, D),
+                         torch.einsum("bhgqk,bqhgd->bkhd", dn, qf.abs()),
+                         torch.zeros_like(mags[2])))

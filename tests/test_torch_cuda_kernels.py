@@ -1501,7 +1501,7 @@ def _bwd_case(cuda, B, Sq, Skv, H, KV, D, seed):
 def _hold_grads(grads, q, k, v, o, do, kw):
     """Each element of dQ, dK, dV within 4 bf16 ulps of the magnitude of
     the terms it sums (``plain_backward(..., terms=True)``)."""
-    *ref, terms = fa.plain_backward(q, k, v, o, do, terms=True, **kw)
+    *ref, terms, _ = fa.plain_backward(q, k, v, o, do, terms=True, **kw)
     for g, r, t in zip(grads, ref, terms):
         assert g.shape == r.shape and g.dtype == torch.bfloat16
         e = (g.float() - r.float()).abs()
@@ -1509,24 +1509,101 @@ def _hold_grads(grads, q, k, v, o, do, kw):
             (e / (4 * 2.0 ** -7 * t).clamp(min=1e-30)).max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", list(BWD_MODES))
-@pytest.mark.parametrize("D,H,KV", [(64, 8, 8), (128, 16, 8), (160, 8, 2),
-                                    (256, 8, 4), (64, 16, 2)])
-def test_flash_backward_matches_plain(cuda, mode, D, H, KV):
-    """dQ, dK, dV at every head dim and mode (G 1, 2, 4 and 8), across
-    ragged tile edges, bit-equal on a second call; the forward's O
-    bit-equal with and without its LSE output."""
-    kw = BWD_MODES[mode]
-    Skv = 333 if mode == "full" else 200
-    q, k, v, do = _bwd_case(cuda, 2, 200, Skv, H, KV, D, D)
+def _bwd_holds(cuda, B, Sq, Skv, H, KV, D, kw, seed):
+    """dQ, dK, dV held by ``_hold_grads`` and bit-equal on a second call;
+    the forward's O bit-equal with and without its LSE output."""
+    q, k, v, do = _bwd_case(cuda, B, Sq, Skv, H, KV, D, seed)
     o, lse = fa.forward_with_lse(q, k, v, **kw)
     assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
-    assert lse.shape == (2, H, 200) and lse.dtype == torch.float32
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
     grads = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     _hold_grads(grads, q, k, v, o, do, kw)
     again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [127, 128, 129, 200])
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+@pytest.mark.parametrize("D,H,KV", [(64, 8, 8), (128, 16, 8), (160, 8, 2),
+                                    (256, 8, 4), (64, 16, 2), (128, 12, 2)])
+def test_flash_backward_matches_plain(cuda, mode, D, H, KV, S):
+    """dQ, dK, dV at every head dim and mode, G 1, 2, 4, 6 and 8, B 1 and
+    3, with Sq at, just under and just over a whole 128-row tile and past
+    it (Skv = Sq, or 133 more in full mode: Sq < Skv); the window (100)
+    ends inside a 64-row tile."""
+    Skv = S + 133 if mode == "full" else S
+    _bwd_holds(cuda, 1 if S % 2 else 3, S, Skv, H, KV, D, BWD_MODES[mode],
+               D + S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_at_both_dkdv_designs(cuda, mode, D):
+    """The wgmma head dims' two dK/dV designs: 64-key CTAs on a grid that
+    would leave the card's SMs short of two 128-key CTAs each, 128-key
+    CTAs on one that would not (a ragged 1500-key sequence, B chosen from
+    the card's SM count); then each design at the other's shape, chosen
+    by ``set_bwd_keys``, and the rule again after it."""
+    kw = BWD_MODES[mode]
+    Skv = 1700 if mode == "full" else 1500
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    big = -(-2 * sms // (-(-Skv // 128) * 8))
+    shapes = []
+    for B, Sq, want in ((1, 200, 64), (big, 1500, 128)):
+        skv = Skv if B == big else Sq + (133 if mode == "full" else 0)
+        assert fa.bwd_design(B, skv, 8, D) == f"wgmma, {want}-key dK/dV CTAs"
+        _bwd_holds(cuda, B, Sq, skv, 16, 8, D, kw, D + B)
+        shapes.append((B, Sq, skv, 192 - want))
+    try:
+        for B, Sq, skv, keys in shapes:
+            fa.set_bwd_keys(keys)
+            assert fa.bwd_design(B, skv, 8, D) == \
+                f"wgmma, {keys}-key dK/dV CTAs"
+            _bwd_holds(cuda, B, Sq, skv, 16, 8, D, kw, D + B + 1)
+    finally:
+        fa.set_bwd_keys(0)
+    assert fa.bwd_design(1, 200, 8, D) == "wgmma, 64-key dK/dV CTAs"
+    with pytest.raises(ValueError):
+        fa.set_bwd_keys(96)
+
+
+@pytest.mark.cuda
+def test_flash_backward_workspace_rows_come_from_the_source(cuda):
+    """The wrapper sizes the backward's workspace by the library's own
+    export: Sq rounded up to a whole 128-row tile."""
+    assert [fa.bwd_rows(n) for n in (1, 127, 128, 129, 416, 1536)] == [
+        128, 128, 128, 256, 512, 1536]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 160])
+def test_flash_backward_is_bit_equal_after_other_work(cuda, D):
+    """dQ, dK, dV bit-equal across calls with other work between them on
+    the stream (a backward at another shape, a matmul) and with a call on
+    a side stream while a matmul keeps the card's SMs busy: a sum whose
+    order followed the scheduling would show."""
+    kw = dict(causal=True)
+    q, k, v, do = _bwd_case(cuda, 2, 300, 300, 16, 4, D, 11)
+    o, lse = fa.forward_with_lse(q, k, v, **kw)
+    first = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    q2, k2, v2, do2 = _bwd_case(cuda, 3, 700, 900, 8, 8, D, 12)
+    o2, lse2 = fa.forward_with_lse(q2, k2, v2, causal=False)
+    fa.flash_attention_bwd(q2, k2, v2, o2, do2, lse2, causal=False)
+    x = torch.randn((4096, 4096), device=cuda)
+    y = x @ x
+    assert all(torch.equal(a, b) for a, b in zip(
+        first, fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(4):
+        y = y @ x
+    with torch.cuda.stream(side):
+        on_side = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize(cuda)
+    assert all(torch.equal(a, b) for a, b in zip(first, on_side))
+    assert bool(torch.isfinite(y).any())
 
 
 @pytest.mark.cuda
@@ -1592,727 +1669,6 @@ def _hold_rwkv_grads(grads, a, dy, dS, chunk, states):
     _, worst, what = rs.backward_error(grads, *a, dy, dS, chunk=chunk,
                                        states=states)
     assert worst <= 1.0, (worst, what)
-    return worst
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("D", rs.HEAD_DIMS)
-@pytest.mark.parametrize("chunk", [64, 37])
-def test_rwkv6_kernel_at_every_split(cuda, D, chunk):
-    """Each (D, split) instance of the kernel, with whole and ragged
-    (37-row) chunks."""
-    a = _rwkv(cuda, 1, 2 * chunk, 3, D, D + rs.split(1, 3, D), -6.0)
-    assert _rwkv_err(rs.rwkv6_scan(*a, chunk=chunk),
-                     rs.plain(*a, chunk=chunk)) < 5e-4
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(4, 4096, 1024), (64, 256, 128),
-                                   (130, 200, 70), (1, 33, 17),
-                                   (77, 1000, 300)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_int8_kernel_matches_plain(cuda, M, K, N, dtype):
-    """Whole tiles and edges that are not a multiple of the 64 x 64 x 32
-    tile (nor of the 16-byte vector loads)."""
-    gen = torch.Generator(cuda).manual_seed(M + K + N)
-    x = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
-    wq = torch.randint(-128, 128, (K, N), generator=gen, device=cuda,
-                       dtype=torch.int8)
-    ws = 0.001 + 0.009 * torch.rand((N,), generator=gen, device=cuda)
-    o = im.int8_matmul(x, wq, ws)
-    o_ref = im.plain(x, wq, ws)
-    assert o.dtype == dtype and o.shape == (M, N)
-    rel = float((o.float() - o_ref.float()).abs().max()
-                / o_ref.float().abs().max())
-    assert rel < 5e-3
-
-
-@pytest.mark.cuda
-def test_int8_kernel_dispatch_and_refusals(cuda):
-    x = torch.randn((2, 3, 64), device=cuda, dtype=torch.bfloat16)
-    wq = torch.randint(-128, 128, (64, 32), device=cuda, dtype=torch.int8)
-    ws = torch.rand((32,), device=cuda)
-    n = im.int8_matmul.launches
-    o = ops.int8_matmul(x, wq, ws)
-    assert o.shape == (2, 3, 32) and im.int8_matmul.launches == n + 1
-    ops.set_backend("ref")
-    try:
-        ops.int8_matmul(x, wq, ws)
-    finally:
-        ops.set_backend(None)
-    assert im.int8_matmul.launches == n + 1
-    # an x view that is not contiguous is packed by the wrapper
-    xt = torch.randn((64, 5), device=cuda, dtype=torch.bfloat16).T
-    rel = float((im.int8_matmul(xt, wq, ws).float()
-                 - im.plain(xt, wq, ws).float()).abs().max()
-                / im.plain(xt, wq, ws).float().abs().max())
-    assert rel < 5e-3
-    with pytest.raises(ValueError, match="int8"):
-        im.int8_matmul(x, wq.float(), ws)
-    with pytest.raises(ValueError, match="shapes"):
-        im.int8_matmul(x[..., :32], wq, ws)
-    with pytest.raises(ValueError, match="x in"):
-        im.int8_matmul(x.half(), wq, ws)
-    with pytest.raises(ValueError, match="contiguous"):
-        im.int8_matmul(x, wq.T.contiguous().T, ws)
-    with pytest.raises(ValueError, match="CUDA"):
-        im.int8_matmul(x, wq.cpu(), ws)
-
-
-# (design, M, K, N, x dtype): rwkv6-7b's channel-mix wk / wv, the ragged
-# edges of each design and the shapes only the general kernel takes
-_WK, _WV = (4096, 14336), (14336, 4096)
-INT8_DESIGNS = (
-    [("wgmma", 1536, *_WK, torch.bfloat16), ("wgmma", 1536, *_WV, torch.bfloat16),
-     ("wgmma", 200, 4104, 4112, torch.bfloat16),     # ragged M, N, K: tile 192
-     ("wgmma", 2000, 4104, 4112, torch.bfloat16),    # ragged M, N, K: tile 256
-     ("wgmma", 33, 64, 16, torch.bfloat16),          # just above the limit
-     ("wgmma", 384, 1024, 2048, torch.bfloat16)]     # whole tiles
-    + [("splitk", M, *kn, dt) for M in (1, 4, 16) for kn in (_WK, _WV)
-       for dt in (torch.bfloat16, torch.float32)]
-    + [("splitk", 32, 4104, 4112, torch.bfloat16), ("splitk", 5, 1, 16,
-                                                     torch.float32),
-       ("splitk", 9, 1000, 128, torch.bfloat16),
-       ("general", 200, 4096, 4096, torch.float32),  # f32 above the limit
-       ("general", 100, 4100, 4096, torch.bfloat16),  # K % 8 != 0
-       ("general", 4, 4096, 4100, torch.bfloat16)])   # N % 16 != 0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("design,M,K,N,dtype", INT8_DESIGNS)
-def test_int8_designs_match_plain_and_repeat(cuda, design, M, K, N, dtype):
-    """Each design against plain within 5e-3 of max |plain|, the same bits
-    on a second call, and the per-route count shows the design ran.  The
-    reference is plain's fp32 product before its cast to x's dtype: a
-    bf16 output then differs by its own rounding, at most half an ulp
-    (under 3.9e-3 of max |plain|), whereas two bf16 results whose fp32
-    sums straddle a rounding boundary differ by a whole ulp, up to 7.8e-3
-    of max |plain| when that max sits low in its binade (the general
-    kernel's (4, 4096, 4100) case does)."""
-    assert im.route(M, N, K, dtype, True) == design
-    gen = torch.Generator(cuda).manual_seed(M * 7 + K + N)
-    x = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
-    wq = torch.randint(-128, 128, (K, N), generator=gen, device=cuda,
-                       dtype=torch.int8)
-    ws = 0.001 + 0.009 * torch.rand((N,), generator=gen, device=cuda)
-    before = dict(im.int8_matmul.routes)
-    o = im.int8_matmul(x, wq, ws)
-    ran = {r: n - before[r] for r, n in im.int8_matmul.routes.items()}
-    assert ran == {r: int(r == design) for r in im.ROUTES}
-    o_ref = im.plain(x.float(), wq, ws)   # x is rounded to bf16 first
-    assert o.dtype == dtype and o.shape == (M, N)
-    rel = float((o.float() - o_ref).abs().max() / o_ref.abs().max())
-    assert rel < 5e-3
-    assert torch.equal(o, im.int8_matmul(x, wq, ws))
-
-
-@pytest.mark.cuda
-def test_int8_unaligned_x_takes_the_general_kernel(cuda):
-    """A view of x that starts off a 16-byte boundary cannot be read by
-    TMA: the route is general, and the result still matches."""
-    base = torch.randn((300 * 1024 + 1,), device=cuda, dtype=torch.bfloat16)
-    x = base[1:].view(300, 1024)
-    wq = torch.randint(-128, 128, (1024, 256), device=cuda, dtype=torch.int8)
-    ws = torch.rand((256,), device=cuda)
-    n = im.int8_matmul.routes["general"]
-    o = im.int8_matmul(x, wq, ws)
-    assert im.int8_matmul.routes["general"] == n + 1
-    o_ref = im.plain(x, wq, ws)
-    assert float((o.float() - o_ref.float()).abs().max()
-                 / o_ref.float().abs().max()) < 5e-3
-
-
-@pytest.mark.cuda
-def test_tiny_rwkv_engine_on_the_card_runs_the_scan(cuda):
-    """A narrow rwkv6 (head dim 64) on the dense Engine: every prefill
-    runs rwkv6_scan once per layer per chunk run (twice for a ragged
-    prompt over 64 tokens), and a reused slot matches a fresh engine."""
-    from repro_torch.configs import get
-    from repro_torch.configs.tiny import make_tiny
-    from repro_torch.models.init import init_params
-    from repro_torch.serving.engine import Engine, Request
-    cfg = make_tiny(get("rwkv6-7b"), d_model=256).replace(rwkv_head_dim=64)
-    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
-    eng = Engine(cfg, params, slots=2, max_len=256, device=cuda)
-    n0 = rs.rwkv6_scan.launches
-    lens = (30, 100)                   # one chunk run; 64 + a 36-row tail
-    reqs = [Request(f"r{i}", np.arange(2, 2 + n) % 500, max_new_tokens=6)
-            for i, n in enumerate(lens)]
-    for r in reqs:
-        assert eng.add_request(r)
-    while eng.requests:
-        eng.step()
-    assert all(len(r.output) == 6 for r in reqs)
-    assert rs.rwkv6_scan.launches - n0 == cfg.num_layers * (1 + 2)
-    again = Request("b", np.arange(5, 45) % 500, max_new_tokens=6)
-    assert eng.add_request(again) and again.slot == 0
-    while eng.requests:
-        eng.step()
-    fresh = Engine(cfg, params, slots=2, max_len=256, device=cuda)
-    ref = Request("b", np.arange(5, 45) % 500, max_new_tokens=6)
-    assert fresh.add_request(ref)
-    while fresh.requests:
-        fresh.step()
-    assert again.output == ref.output
-
-
-def _tiny_on_card(cuda, seed=0):
-    from repro_torch.configs import get
-    from repro_torch.configs.tiny import make_tiny
-    from repro_torch.models.init import init_params
-    cfg = make_tiny(get("llama-1.5b"), d_model=256)
-    return cfg, init_params(cfg, torch.Generator(cuda).manual_seed(seed),
-                            cuda)
-
-
-@pytest.mark.cuda
-def test_fleet_failover_on_the_card_resumes_bit_for_bit(cuda):
-    """Two one-row PagedEngines in a fleet (head dim 64): the engine
-    holding a greedy request fails mid-decode, the balancer re-places
-    the request from its shadow checkpoint (wire v2) on the other, and
-    its tokens equal the request served alone on a fresh engine."""
-    from repro_torch.core.attestation import TrustAuthority
-    from repro_torch.core.daemon import CLOUD
-    from repro_torch.fleet import EngineHandle, FleetController, RequestSpec
-    from repro_torch.serving.engine import Request
-    from repro_torch.serving.paged import PagedEngine
-    cfg, params = _tiny_on_card(cuda)
-    mk = lambda seed: PagedEngine(cfg, params, page_size=16, rows=1,  # noqa
-                                  max_len=128, seed=seed, device=cuda)
-    prompt = np.arange(3, 40) % 500
-    solo = mk(9)
-    ref = Request("ref", prompt, max_new_tokens=16)
-    solo.add_request(ref)
-    while solo.requests:
-        solo.step()
-    fleet = FleetController([EngineHandle("a", mk(0), CLOUD),
-                             EngineHandle("b", mk(1), CLOUD)],
-                            authority=TrustAuthority())
-    t = fleet.submit(RequestSpec(rid="r", prompt=prompt, max_new_tokens=16))
-    for _ in range(5):
-        fleet.step()
-    src = fleet.placement_of("r")
-    fleet.fail(src)
-    assert t.result() == ref.output
-    assert fleet.placements["r"] == [src, "b" if src == "a" else "a"]
-    (rec,) = fleet.telemetry.migrations
-    assert rec.reason == "failover" and not rec.lossy
-
-
-@pytest.mark.cuda
-def test_fleet_distribution_pair_launches_spec_accept_once_a_round(cuda):
-    """A draft (seed 1) -> verify (seed 0) pair in ``distribution``
-    mode on the card: every verify round of the one-slot pair launches
-    ``spec_accept`` once, and the committed stream is complete."""
-    from repro_torch.core.attestation import TrustAuthority
-    from repro_torch.core.daemon import CLOUD, EDGE
-    from repro_torch.fleet import EngineHandle, FleetController, RequestSpec
-    from repro_torch.serving.engine import Engine
-    cfg, target = _tiny_on_card(cuda, 0)
-    _, draft = _tiny_on_card(cuda, 1)
-    fleet = FleetController(
-        [EngineHandle("draft", Engine(cfg, draft, slots=1, max_len=128,
-                                      device=cuda), EDGE),
-         EngineHandle("verify", Engine(cfg, target, slots=1, max_len=128,
-                                       device=cuda), CLOUD)],
-        authority=TrustAuthority(), spec_tiers={"draft": "verify"},
-        spec_options={"verify_mode": "distribution", "gamma": 4})
-    n0 = sv.spec_accept.launches
-    ts = [fleet.submit(RequestSpec(rid=f"r{i}", prompt=np.arange(5, 30 + i),
-                                   max_new_tokens=12,
-                                   temperature=0.7 * i, top_k=16 * i))
-          for i in range(2)]
-    for t in ts:
-        assert len(t.result()) == 12
-    st = fleet.spec_controllers["draft"].stats
-    assert st.requests == 2 and st.rounds > 0
-    assert sv.spec_accept.launches - n0 == st.rounds
-
-
-@pytest.mark.cuda
-def test_socket_fleet_kill_service_fails_over_bit_for_bit(cuda):
-    """Service mode on the card: two one-row PagedEngines behind a
-    ``ControlPlane`` over the loopback-socket transport, one service
-    thread each.  The service holding a greedy request is killed after
-    its shadow arrived; the heartbeat detector declares it failed and
-    the request resumes from the shadow (wire v2) on the other engine,
-    its tokens equal to the request served alone on a fresh engine."""
-    import time
-
-    from repro_torch.core.attestation import TrustAuthority
-    from repro_torch.core.channel import SocketTransport
-    from repro_torch.core.daemon import CLOUD
-    from repro_torch.fleet import (ControlPlane, EngineHandle,
-                                   FleetController, RequestSpec,
-                                   RequestState)
-    from repro_torch.serving.engine import Request
-    from repro_torch.serving.paged import PagedEngine
-    cfg, params = _tiny_on_card(cuda)
-    mk = lambda seed: PagedEngine(cfg, params, page_size=16, rows=1,  # noqa
-                                  max_len=128, seed=seed, device=cuda)
-    prompt = np.arange(3, 40) % 500
-    solo = mk(9)
-    ref = Request("ref", prompt, max_new_tokens=48)
-    solo.add_request(ref)
-    while solo.requests:
-        solo.step()
-    fleet = FleetController([EngineHandle("a", mk(0), CLOUD),
-                             EngineHandle("b", mk(1), CLOUD)],
-                            authority=TrustAuthority())
-    cp = ControlPlane(fleet, transport=SocketTransport(), sync_every=4,
-                      hb_timeout_s=1.0)
-    cp.start(threads=True)
-    try:
-        t = cp.submit(RequestSpec(rid="r", prompt=prompt,
-                                  max_new_tokens=48))
-        deadline = time.perf_counter() + 120.0
-        while time.perf_counter() < deadline and not any(
-                fleet.balancer.shadow.values()):
-            time.sleep(0.005)
-        src = fleet.placement_of("r")
-        assert src is not None and fleet.balancer.shadow.get(src)
-        cp.kill_service(src)
-        while time.perf_counter() < deadline and not t.done:
-            time.sleep(0.01)
-        assert t.state is RequestState.DONE
-        assert t.output == ref.output
-        other = "b" if src == "a" else "a"
-        assert fleet.placements["r"] == [src, other]
-        assert [ev.engine for ev in fleet.telemetry.heartbeat_events()] \
-            == [src]
-        (rec,) = fleet.telemetry.migrations
-        assert rec.reason == "failover" and not rec.lossy
-    finally:
-        cp.stop()
-
-
-@pytest.mark.cuda
-def test_autoscaler_spawn_shares_its_donors_programs(cuda):
-    """A paged template of the seed engine's geometry spawns, on the
-    card, an engine served the seed engine's program set
-    (``program_cache_hit``, the spawn span's ``cache_hit``), and a
-    greedy request on it equals the same request alone on the seed
-    engine, bit for bit."""
-    from repro_torch.core.attestation import TrustAuthority
-    from repro_torch.core.daemon import CLOUD
-    from repro_torch.fleet import (Autoscaler, EngineHandle, EngineTemplate,
-                                   FleetController, ScalePolicy)
-    from repro_torch.serving.engine import Request
-    from repro_torch.serving.paged import PagedEngine
-    cfg, params = _tiny_on_card(cuda)
-    seed_eng = PagedEngine(cfg, params, page_size=16, rows=2, max_len=128,
-                           pages=16, seed=0, device=cuda)
-    fleet = FleetController(
-        [EngineHandle("base", seed_eng, CLOUD)], authority=TrustAuthority(),
-        autoscaler=Autoscaler(
-            EngineTemplate(name="auto", profile=CLOUD, slots=2, max_len=128,
-                           page_size=16, pages=16),
-            ScalePolicy(min_engines=1, max_engines=2,
-                        scale_up_queue_depth=10)))
-    ev = fleet.autoscaler.scale_up(fleet, reason="test")
-    spawned = fleet.handles[ev.engine].engine
-    assert spawned.device.type == "cuda"
-    assert spawned.program_cache_hit
-    assert spawned._programs is seed_eng._programs
-    span = next(s for s in fleet.tracer.spans if s.name == "spawn")
-    assert span.attrs["cache_hit"] is True
-    prompt = np.arange(7, 50) % 500
-    outs = []
-    for eng in (spawned, seed_eng):
-        req = Request("r", prompt, max_new_tokens=16)
-        assert eng.add_request(req)
-        while not req.done:
-            eng.step()
-        outs.append(req.output)
-    assert outs[0] == outs[1]
-
-
-# -- head dims 160 (stablelm-12b) and 256 (gemma3-4b) ----------------------
-
-WIDE = (160, 256)
-GROUPS = (1, 2, 4, 8)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("S", [64, 129, 1024])
-@pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("G", GROUPS)
-@pytest.mark.parametrize("D", WIDE)
-def test_flash_kernel_wide_head_dims(cuda, D, G, mode, S):
-    """The padded-tile instances (D = 160 in three 64-column boxes, the
-    last one past D zero-filled; D = 256 with two stages of 64-key tiles)
-    in every mode, at the edges of the 128-row query and 64-key tiles."""
-    KV = 2
-    gen = torch.Generator(cuda).manual_seed(D + G + S)
-    q, k, v = (torch.randn((2, S, n, D), generator=gen, device=cuda,
-                           dtype=torch.bfloat16) for n in (G * KV, KV, KV))
-    kw = MODES[mode]
-    o = fa.flash_attention(q, k, v, **kw)
-    _hold_query_rows(o, fa.plain(q, k, v, **kw))
-    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("D", WIDE)
-def test_flash_kernel_wide_strided_views_and_local_window(cuda, D):
-    """Head slices of one fused tensor read in place, and gemma3-4b's
-    local layer shape (H 8 / KV 4, window 1024) over 1536 tokens."""
-    gen = torch.Generator(cuda).manual_seed(D)
-    qkv = torch.randn((1, 1536, 16, D), generator=gen, device=cuda,
-                      dtype=torch.bfloat16)
-    q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
-    for kw in (dict(causal=True), dict(causal=True, window=1024),
-               dict(causal=True, softcap=50.0)):
-        o = fa.flash_attention(q, k, v, **kw)
-        ref = fa.plain(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
-        assert float((o.float() - ref.float()).abs().max()) < 2e-2, kw
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["plain", "window", "softcap"])
-@pytest.mark.parametrize("G", GROUPS)
-@pytest.mark.parametrize("D", WIDE)
-def test_paged_kernel_wide_head_dims(cuda, D, G, mode, dtype):
-    """Tables with holes and a split over several runs; each live row
-    within its limit against the plain version and the split arithmetic,
-    the dead row exactly 0, and the same bits on a second call."""
-    B, KV, ps, NP = 4, 2, 16, 20
-    P = 3 * NP + 1
-    q, kp, vp = _paged_pools(cuda, B, P, ps, KV, G * KV, D, dtype, D + G)
-    rng = np.random.default_rng(D + G)
-    pt = np.full((B, NP), -1, np.int32)
-    perm = rng.permutation(P)
-    for b in range(3):
-        pt[b] = perm[b * NP:(b + 1) * NP]
-    pt[1, 3] = -1                                     # a hole mid-row
-    pos = np.asarray([NP * ps - 1, 8 * ps, 10 * ps + 3, 40], np.int32)
-    kw = {"window": dict(window=5 * ps + 3),
-          "softcap": dict(softcap=50.0)}.get(mode, {})
-    pt_t, pos_t = torch.from_numpy(pt).to(cuda), torch.from_numpy(pos).to(cuda)
-    o = da.paged_decode_attention(q, kp, vp, pt_t, pos_t, **kw)
-    for want in (da.paged_plain(q, kp, vp, pt_t, pos_t, **kw),
-                 da.paged_split_plain(q, kp, vp, pt_t, pos_t, **kw)):
-        _hold_rows(o, want, slice(0, 3))
-    assert float(o[3].abs().max()) == 0.0
-    assert torch.equal(o, da.paged_decode_attention(q, kp, vp, pt_t, pos_t,
-                                                    **kw))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["fill", "ring", "softcap"])
-@pytest.mark.parametrize("G", GROUPS)
-@pytest.mark.parametrize("D", WIDE)
-def test_dense_decode_kernel_wide_head_dims(cuda, D, G, mode, dtype):
-    """Fill levels across chunk edges, a 1024-slot ring buffer (gemma3-4b's
-    local layer) and a softcap; each row within its limit against the
-    plain version and the split arithmetic, the empty row exactly 0, the
-    same bits on a second call."""
-    C, B, KV = da.CHUNK, 4, 2
-    kw = {"softcap": dict(softcap=50.0)}.get(mode, {})
-    if mode == "ring":
-        Sc, kw, pos = 1024, dict(window=1024), [1500, 1023, 200, 0]
-    else:
-        Sc, pos = 3 * C + 44, [3 * C + 43, C, C - 1, 0]
-    q, kc, vc = _decode_rows(cuda, B, Sc, KV, G * KV, D, dtype, D + G)
-    pos_t = torch.tensor(pos, device=cuda, dtype=torch.int32)
-    if mode == "ring":
-        slot = torch.arange(Sc, device=cuda)[None]
-        p = pos_t[:, None] - ((pos_t[:, None] - slot) % Sc)
-        ap = torch.where(p >= 0, p, -1).to(torch.int32)
-    else:
-        ap = _global_ap(cuda, Sc, pos_t)
-    ap[3] = -1                                        # the empty row
-    o = da.decode_attention(q, kc, vc, ap, pos_t, **kw)
-    for want in (da.plain(q, kc, vc, ap, pos_t, **kw),
-                 da.split_plain(q, kc, vc, ap, pos_t, **kw)):
-        _hold_rows(o, want, slice(0, 3))
-    assert float(o[3].abs().max()) == 0.0
-    assert torch.equal(o, da.decode_attention(q, kc, vc, ap, pos_t, **kw))
-
-
-@pytest.mark.cuda
-def test_long_prefill_into_a_ring_buffer_keeps_the_last_window(cuda):
-    """A prefill three times a local layer's ring buffer writes each slot
-    once, with its latest position: the CUDA scatter with repeated
-    indices would keep any one of the positions that share a slot."""
-    from repro_torch.configs import LayerSpec, get
-    from repro_torch.configs.tiny import make_tiny
-    from repro_torch.models import layers
-    cfg = make_tiny(get("gemma3-4b"))
-    lspec = LayerSpec("local", "dense", window=32)
-    cache = layers.make_attn_cache(cfg, lspec, 2, 256, device=cuda)
-    S = 96
-    k = torch.arange(S, device=cuda, dtype=torch.float32)[None, :, None,
-                                                          None]
-    k = k.expand(2, S, cfg.num_kv_heads, cfg.head_dim).to(torch.bfloat16)
-    pos = torch.arange(S, device=cuda)[None].expand(2, S)
-    layers._write_cache(cache, lspec, k, k, pos)
-    # S is a multiple of 32: slot s holds position S - 32 + s
-    want = torch.arange(S - 32, S, device=cuda, dtype=torch.int32)
-    assert torch.equal(cache["abs_pos"][0], want)
-    assert torch.equal(cache["k"][1, :, 0, 0].float(), want.float())
-
-
-# -- whisper-base and internvl2-26b: full mode, D 64, G 6 ------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("Sq,Skv", [(13, 1536), (416, 1536), (448, 37),
-                                    (1536, 1536), (129, 512)])
-@pytest.mark.parametrize("softcap", [0.0, 30.0])
-def test_flash_full_mode_with_sq_ne_skv(cuda, Sq, Skv, softcap):
-    """whisper-base's encoder (Sq = Skv) and cross-attention (decoder
-    tokens over frames) at D 64, H 8 / KV 8: each query row within its
-    limit of the plain version (``_hold_query_rows``), the same bits on
-    a second call."""
-    gen = torch.Generator(cuda).manual_seed(Sq + Skv)
-    q = torch.randn((2, Sq, 8, 64), generator=gen, device=cuda,
-                    dtype=torch.bfloat16)
-    k, v = (torch.randn((2, Skv, 8, 64), generator=gen, device=cuda,
-                        dtype=torch.bfloat16) for _ in range(2))
-    kw = dict(causal=False, softcap=softcap)
-    o = fa.flash_attention(q, k, v, **kw)
-    _hold_query_rows(o, fa.plain(q, k, v, **kw))
-    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
-    assert torch.equal(o, ops.attention_full(q, k, v, softcap=softcap))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("S", [200, 1536])
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_at_group_6(cuda, S, causal):
-    """internvl2-26b's heads: H 48 over KV 8, D 128; each query row
-    within its limit of the plain version (``_hold_query_rows``)."""
-    gen = torch.Generator(cuda).manual_seed(S)
-    q, k, v = (torch.randn((1, S, n, 128), generator=gen, device=cuda,
-                           dtype=torch.bfloat16) for n in (48, 8, 8))
-    o = fa.flash_attention(q, k, v, causal=causal)
-    _hold_query_rows(o, fa.plain(q, k, v, causal=causal))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dense_decode_at_group_6(cuda, dtype):
-    """internvl2-26b's decode rows: G 6, D 128, 1568 slots."""
-    B, Sc = 4, 1568
-    pos = torch.tensor([300, 1000, 1535, 1567], device=cuda,
-                       dtype=torch.int32)
-    q, kc, vc = _decode_rows(cuda, B, Sc, 8, 48, 128, dtype, 6)
-    ap = _global_ap(cuda, Sc, pos)
-    o = da.decode_attention(q, kc, vc, ap, pos)
-    _hold_rows(o, da.plain(q, kc, vc, ap, pos), slice(0, B))
-    assert torch.equal(o, da.decode_attention(q, kc, vc, ap, pos))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dense_decode_over_a_cross_cache(cuda, dtype):
-    """whisper-base's cross-attention decode: D 64, G 1, every row at
-    position 2^30 over a cache that holds the frames in its first slots
-    and -1 past them (a cache longer than the frames); row 3 is empty."""
-    B, Sc = 4, 1536
-    frames = torch.tensor([1536, 1500, 37, 0], device=cuda)
-    q, kc, vc = _decode_rows(cuda, B, Sc, 8, 8, 64, dtype, 64)
-    slot = torch.arange(Sc, device=cuda, dtype=torch.int32)[None]
-    ap = torch.where(slot < frames[:, None], slot, -1).to(torch.int32)
-    pos = torch.full((B,), 1 << 30, device=cuda, dtype=torch.int32)
-    o = da.decode_attention(q, kc, vc, ap, pos)
-    _hold_rows(o, da.plain(q, kc, vc, ap, pos), slice(0, 3))
-    assert float(o[3].abs().max()) == 0.0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["whisper-base", "internvl2-26b"])
-def test_tiny_front_end_models_on_the_card(cuda, name, monkeypatch):
-    """A tiny whisper-base and internvl2-26b (bf16, D 64) through
-    ``models.forward``: a prefill and two decode steps launch flash and
-    dense decode once an attention call (whisper: encoder, causal and
-    cross) and nothing else, and each call is within 4 bf16 ulps of sum
-    p|v| (the plain version on |V|: the magnitude of the terms it sums)
-    of its plain version on its own inputs, as chip_smoke's ``Shadowed``
-    holds them: the random model's values reach O(10), where a flat 2e-2
-    is under one ulp.  (Its logits amplify those one-ulp differences
-    chaotically; chip_smoke's ``whisper`` path holds them by its nudge
-    rule.)"""
-    from repro_torch.configs import ShapeSpec, get
-    from repro_torch.configs.inputs import batch_specs
-    from repro_torch.configs.tiny import make_tiny
-    from repro_torch.models.init import init_params
-    from repro_torch.models.model import forward, make_cache
-    cfg = make_tiny(get(name), d_model=256)           # D 64
-    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
-                         device=cuda)
-    batch = batch_specs(cfg, ShapeSpec("t", 40, 2, "prefill"),
-                        concrete=True, device=cuda)
-    frames = 40 if cfg.encoder_blocks else 0
-    n = cfg.num_layers
-    n_enc = sum(len(b.layers) * b.repeats for b in cfg.encoder_blocks)
-    cross = n if cfg.cross_attention else 0
-    per_prefill, per_step = n_enc + n + cross, n + cross
-    S = batch["tokens"].shape[1] + cfg.num_patches
-    errs = []
-
-    def shadowed(fn, plain):
-        def call(q, k, v, *a, **kw):
-            out = fn(q, k, v, *a, **kw)
-            ref = plain(q, k, v, *a, **kw).float()
-            terms = plain(q, k, v.abs(), *a, **kw).float()
-            errs.append(float(((out.float() - ref).abs() / (
-                4 * 2.0 ** -7 * terms).clamp(min=1e-30)).max()))
-            return out
-        return call
-
-    for op, causal in (("attention_causal", True), ("attention_full", False)):
-        monkeypatch.setattr(ops, op, shadowed(
-            getattr(ops, op),
-            lambda q, k, v, causal=causal, **kw: fa.plain(
-                q, k, v, causal=causal, **kw)))
-    monkeypatch.setattr(ops, "decode_attention",
-                        shadowed(ops.decode_attention, da.plain))
-    fa.flash_attention.launches = da.decode_attention.launches = 0
-    caches = make_cache(cfg, 2, 64, cuda, cross_len=frames)
-    with torch.no_grad():
-        out = [forward(params, batch, cfg=cfg, mode="prefill",
-                       caches=caches)[:, -1]]
-        for t in range(2):
-            pos = torch.full((2, 1), S + t, device=cuda, dtype=torch.int32)
-            out.append(forward(params, {"tokens": batch["tokens"][:, t:t + 1]},
-                               cfg=cfg, mode="decode", caches=caches,
-                               positions=pos)[:, 0])
-    assert fa.flash_attention.launches == per_prefill
-    assert da.decode_attention.launches == 2 * per_step
-    assert len(errs) == per_prefill + 2 * per_step
-    assert max(errs) <= 1.0, errs
-    assert bool(torch.isfinite(torch.stack(out)).all())
-
-
-# ---------------------------------------------------------------------------
-# flash attention's backward kernel and training on the card
-# ---------------------------------------------------------------------------
-
-BWD_MODES = {"causal": dict(causal=True),
-             "window": dict(causal=True, window=100),
-             "full": dict(causal=False),
-             "softcap": dict(causal=True, softcap=30.0)}
-
-
-def _bwd_case(cuda, B, Sq, Skv, H, KV, D, seed):
-    gen = torch.Generator(cuda).manual_seed(seed)
-    q, do = (torch.randn((B, Sq, H, D), generator=gen, device=cuda,
-                         dtype=torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((B, Skv, KV, D), generator=gen, device=cuda,
-                        dtype=torch.bfloat16) for _ in range(2))
-    return q, k, v, do
-
-
-def _hold_grads(grads, q, k, v, o, do, kw):
-    """Each element of dQ, dK, dV within 4 bf16 ulps of the magnitude of
-    the terms it sums (``plain_backward(..., terms=True)``)."""
-    *ref, terms = fa.plain_backward(q, k, v, o, do, terms=True, **kw)
-    for g, r, t in zip(grads, ref, terms):
-        assert g.shape == r.shape and g.dtype == torch.bfloat16
-        e = (g.float() - r.float()).abs()
-        assert bool((e <= 4 * 2.0 ** -7 * t).all()), float(
-            (e / (4 * 2.0 ** -7 * t).clamp(min=1e-30)).max())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", list(BWD_MODES))
-@pytest.mark.parametrize("D,H,KV", [(64, 8, 8), (128, 16, 8), (160, 8, 2),
-                                    (256, 8, 4), (64, 16, 2)])
-def test_flash_backward_matches_plain(cuda, mode, D, H, KV):
-    """dQ, dK, dV at every head dim and mode (G 1, 2, 4 and 8), across
-    ragged tile edges, bit-equal on a second call; the forward's O
-    bit-equal with and without its LSE output."""
-    kw = BWD_MODES[mode]
-    Skv = 333 if mode == "full" else 200
-    q, k, v, do = _bwd_case(cuda, 2, 200, Skv, H, KV, D, D)
-    o, lse = fa.forward_with_lse(q, k, v, **kw)
-    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
-    assert lse.shape == (2, H, 200) and lse.dtype == torch.float32
-    grads = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-    _hold_grads(grads, q, k, v, o, do, kw)
-    again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(grads, again))
-
-
-@pytest.mark.cuda
-def test_flash_autograd_goes_through_the_backward_kernel(cuda):
-    """With grad, ``ops.attention_*`` go through ``FlashAttention``: the
-    forward kernel with its LSE, the backward kernel for the gradients
-    (one launch each), never the plain version; a non-contiguous dO is
-    made contiguous first."""
-    q, k, v, do = _bwd_case(cuda, 1, 256, 256, 8, 2, 128, 5)
-    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-    f0, b0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
-    o = ops.attention_windowed(qq, kk, vv, window=64)
-    assert o.grad_fn is not None
-    dot = do.transpose(0, 1).contiguous().transpose(0, 1)
-    o.backward(dot)
-    assert fa.flash_attention.launches - f0 == 1
-    assert fa.flash_attention_bwd.launches - b0 == 1
-    kw = dict(causal=True, window=64)
-    want = fa.flash_attention_bwd(q, k, v, o.detach(), do,
-                                  fa.forward_with_lse(q, k, v, **kw)[1], **kw)
-    assert all(torch.equal(a, b) for a, b in
-               zip((qq.grad, kk.grad, vv.grad), want))
-
-
-@pytest.mark.cuda
-def test_kernels_without_a_backward_raise_under_grad_on_the_card(cuda):
-    """decode, paged decode, spec_accept and int8_matmul raise under
-    grad with an input that requires it; never a silent detach
-    (rwkv6_scan has its backward kernel:
-    ``test_rwkv6_autograd_goes_through_the_backward_kernel``)."""
-    g = lambda *s: torch.randn(*s, device=cuda).requires_grad_()  # noqa
-    i32 = lambda *s: torch.zeros(s, device=cuda, dtype=torch.int32)  # noqa
-    bf = lambda *s: g(*s).bfloat16().detach().requires_grad_()  # noqa
-    calls = {
-        "decode_attention": lambda: ops.decode_attention(
-            bf(1, 1, 2, 64), bf(1, 8, 2, 64), bf(1, 8, 2, 64), i32(1, 8),
-            i32(1)),
-        "paged_decode_attention": lambda: ops.paged_decode_attention(
-            bf(1, 1, 2, 64), bf(2, 16, 2, 64), bf(2, 16, 2, 64), i32(1, 2),
-            i32(1), page_size=16),
-        "spec_accept": lambda: ops.spec_accept(
-            i32(2), g(2, 32), g(3, 32), torch.rand(2, device=cuda)),
-        "int8_matmul": lambda: ops.int8_matmul(
-            bf(4, 64), torch.zeros((64, 32), device=cuda, dtype=torch.int8),
-            torch.ones(32, device=cuda)),
-    }
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match=f"^{name}: the CUDA kernel has "
-                                             "no backward"):
-            call()
-
-
-# ---------------------------------------------------------------------------
-# the rwkv6 scan's backward kernel
-# ---------------------------------------------------------------------------
-
-RWKV_BWD_ULPS = 16
-
-
-def _hold_rwkv_grads(grads, a, dy, dS, chunk, states):
-    """Each leaf of the kernel's gradient against ``plain_backward`` in
-    float64 on the same chunk-start states: within max(3x the float32
-    ``plain_backward``'s own error there, 16 f32 ulps of the leaf's max
-    |grad|).  Returns the worst error over its limit."""
-    ref32 = rs.plain_backward(*a, dy, dS, chunk=chunk, states=states)
-    ref64 = rs.plain_backward(*(t.double() for t in a), dy.double(),
-                              None if dS is None else dS.double(),
-                              chunk=chunk, states=states.double())
-    worst = 0.0
-    for g, r32, r64 in zip(grads, ref32, ref64):
-        assert g.shape == r64.shape and g.dtype == torch.float32
-        assert torch.isfinite(g).all()
-        top = float(r64.abs().max())
-        ulp = 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 23)
-        own = float((r32.double() - r64).abs().max())
-        err = float((g.double() - r64).abs().max())
-        worst = max(worst, err / max(3 * own, RWKV_BWD_ULPS * ulp))
-    assert worst <= 1.0, worst
     return worst
 
 

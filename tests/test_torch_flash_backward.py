@@ -7,9 +7,13 @@ softcap), G 1 / 2 / 4 and head dims 64 / 128 / 160 / 256; and the kernel
 wrappers' refusal to run under autograd where they have no backward.
 
 Tolerance: 2e-5 of each gradient's max |reference| (the f32 kernel
-tolerance), for dQ, dK and dV.  The backward kernel itself runs on the
-card only (tests/test_torch_cuda_kernels.py, chip_smoke.py).
+tolerance), for dQ, dK and dV; the element rule's magnitudes
+(``terms=True``) against float64 where dP and delta cancel.
+The backward kernel itself runs on the card only
+(tests/test_torch_cuda_kernels.py, chip_smoke.py).
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -86,13 +90,67 @@ def test_plain_backward_terms_bound_its_rounding():
     elementwise, and not 0 on a causal row 0, whose dS cancels."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(40, 40, 4, 2, 64, 3))
     o = fa.plain(q, k, v, causal=True)
-    *grads, terms = fa.plain_backward(q, k, v, o, do, causal=True,
-                                      terms=True)
+    *grads, terms, _ = fa.plain_backward(q, k, v, o, do, causal=True,
+                                         terms=True)
     for g, t in zip(grads, terms):
         assert t.shape == g.shape and t.dtype == torch.float32
         assert bool((g.abs() <= t * (1 + 1e-5) + 1e-6).all())
     assert float(grads[0][:, 0].abs().max()) < 1e-5
     assert float(terms[0][:, 0].abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dots_bound_the_rounding_of_cancelling_dot_products(seed):
+    """On one-hot rows (each query its own dominant key) with dO
+    orthogonal to O, dP = dO V^T and delta = rowsum(dO o O) cancel to
+    their fp32 rounding: fp32 ``plain_backward`` against itself in float64
+    on the same inputs (float64 inputs keep float64) misses 4 bf16 ulps
+    of the terms dQ sums (the first magnitudes ``terms=True`` adds), and
+    every element of dQ, dK and dV stays within that plus 2 fp32 ulps
+    (4 x 2^-24) of the dot products' terms (the second, 0 for dV, which
+    holds neither)."""
+    g = torch.Generator().manual_seed(seed)
+    S, H, KV, D = 48, 2, 1, 64
+    q = torch.randn(1, S, H, D, generator=g, dtype=torch.float64) * 6
+    k = q[:, :, :KV].clone()
+    v = torch.randn(1, S, KV, D, generator=g, dtype=torch.float64) * 20
+    o = fa.plain(q, k, v, causal=True).double()
+    gd = torch.randn(1, S, H, D, generator=g, dtype=torch.float64) * 1e-6
+    do = gd - (gd * o).sum(-1, keepdim=True) / (o * o).sum(
+        -1, keepdim=True) * o
+    ins = [t.float() for t in (q, k, v, o, do)]
+    *grads, terms, dots = fa.plain_backward(*ins, causal=True, terms=True)
+    exact = fa.plain_backward(*(t.double() for t in ins), causal=True)
+    beyond = []
+    for got, want, t, n in zip(grads, exact, terms, dots):
+        assert want.dtype == torch.float64
+        e = (got.double() - want).abs()
+        assert bool((e <= 4 * 2.0 ** -7 * t + 4 * 2.0 ** -24 * n).all())
+        beyond.append(float((e / (4 * 2.0 ** -7 * t).clamp(
+            min=1e-300)).max()))
+    assert beyond[0] > 1.0, beyond
+    assert float(dots[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=24),
+                                dict(causal=True, softcap=5.0)],
+                         ids=["causal", "full", "window", "softcap"])
+def test_plain_backward_meets_the_bf16_rule_on_random_inputs(kw):
+    """On random inputs, where dP and delta do not cancel, fp32
+    ``plain_backward`` against itself in float64 on the same inputs stays
+    far inside 4 bf16 ulps of the magnitude of the terms each element sums
+    alone: the rule a backward kernel is held to at random shapes, with no
+    part for the dot products' rounding."""
+    ins = [torch.from_numpy(a) for a in _inputs(40, 56, 4, 2, 64, 5)]
+    q, k, v, do = ins
+    o = fa.plain(q, k, v, **kw)
+    *grads, terms, _ = fa.plain_backward(q, k, v, o, do, terms=True, **kw)
+    exact = fa.plain_backward(*(t.double() for t in (q, k, v, o, do)),
+                              **kw)
+    for got, want, t in zip(grads, exact, terms):
+        e = (got.double() - want).abs()
+        assert bool((e <= 4 * 2.0 ** -7 * t * 1e-2).all())
 
 
 def test_backward_wrapper_refuses_cpu_tensors():
@@ -103,6 +161,24 @@ def test_backward_wrapper_refuses_cpu_tensors():
                                          "CUDA tensors"):
         fa.flash_attention_bwd(q, k, v, q, do, lse)
     assert "flash_attention_bwd" in build.KERNELS
+
+
+def test_build_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """Both flash sources include ``csrc/hopper.cuh``; an edited header
+    names a new library for every kernel, so a stale one is never
+    loaded, and an unchanged tree names the same one."""
+    for f in build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert '#include "hopper.cuh"' in (tmp_path / f"{name}.cu").read_text()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._target(n) for n in build.KERNELS}
+    assert before == {n: build._target(n) for n in build.KERNELS}
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build._target(n) for n in build.KERNELS}
+    assert all(before[n] != after[n] for n in build.KERNELS)
 
 
 def _kernel_calls():
