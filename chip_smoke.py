@@ -36,14 +36,17 @@ the result line):
                terms it sums (``plain_backward(..., terms=True)``),
                bit-equal on a second call, beside SDPA's backward, with the
                forward's O bit-equal with and without its LSE output; the
-               rwkv6 scan's backward kernel (``rwkv6_scan_bwd``, the port's
-               own) at rwkv6-7b's train shape (B 4, T 1536, H 64, D 64,
-               chunk 8; dS_T zero and nonzero), at chunk 64 and on a
-               ragged 40-row tail carrying a state, each gradient leaf
-               within max(3x the f32 ``plain_backward``'s own error, 16
-               f32 ulps of the leaf's max) of a float64
-               ``plain_backward``, bit-equal on a second call, and the
-               scan's forward at chunk 8 timed at the train shape
+               rwkv6 scan's backward (``rwkv6_scan_bwd``, the port's own:
+               a dS chain kernel writing checkpoints and a body kernel
+               over groups of chunks) at rwkv6-7b's train shape (B 4, T
+               1536, H 64, D 64, chunk 8; dS_T zero and nonzero), at chunk
+               64 and on a ragged 40-row tail carrying a state, each
+               gradient leaf within max(3x the f32 ``plain_backward``'s own
+               error, 16 f32 ulps of the leaf's max) of a float64
+               ``plain_backward``, the checkpoints within the same rule of
+               ``plain_dstate``, bit-equal on a second call, timed by
+               kernel beside two bounds, and the scan's forward at chunk 8
+               timed at the train shape
   4. paths   : each path driven with every launch count set to 0 just
                before it and read just after; llama-1.5b at full width
                (bf16, random weights from seeds 0 and 1):
@@ -1466,11 +1469,12 @@ def _moderate(w, gen):
 
 
 def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
-    """The backward kernel (``csrc/rwkv6_scan_bwd.cu``, the port's own: no
-    Pallas counterpart) at rwkv6-7b's train shape (B=4, T=1536, H=64,
-    D=64, chunk 8, state0 zero, decays to exp(-e^1.5)) with dS_T zero and
-    nonzero, at chunk 64 (B=1, T=1536) and on a ragged 40-row tail
-    carrying a state (B=4), both at w >= 0.69 (``_moderate``): the
+    """The backward (``csrc/rwkv6_scan_bwd.cu``, the port's own: no
+    Pallas counterpart; two device kernels a call, the dS chain and the
+    body over groups of chunks) at rwkv6-7b's train shape (B=4, T=1536,
+    H=64, D=64, chunk 8, state0 zero, decays to exp(-e^1.5)) with dS_T
+    zero and nonzero, at chunk 64 (B=1, T=1536) and on a ragged 40-row
+    tail carrying a state (B=4), both at w >= 0.69 (``_moderate``): the
     forward's out and final state bit-equal with and without its states
     output, whose first chunk is state0; those chunk-start states within
     ``RWKV_TOL`` x max(1, the chunk's max |plain|) of ``plain_states``,
@@ -1478,11 +1482,20 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
     ``rwkv_bwd_err``'s rule of ``plain_backward`` on the same chunk-start
     states (the backward kernel's inputs), and within the same rule of
     ``plain_backward`` on its own states (forward and backward kernels
-    together); bit-equal on a second call.  At the train shape
-    timed by events and by the profiler's device time beside
-    ``plain_backward`` and the bound; the forward at chunk 8 timed there
-    too, with and without the states output.  Returns (the backward's
-    row, the forward's chunk-8 case for rwkv6_scan's row)."""
+    together); the chain's checkpoints and dstate0 within the same rule
+    of ``plain_dstate`` (``rs.dstate_error``); bit-equal on a second
+    call, checkpoints too.  At the train shape timed by events and by the
+    profiler's device time, in all and by kernel, beside
+    ``plain_backward`` and two bounds: the bytes any backward must move
+    (r, k, v, w, dy, dS_T in, the gradients out) and the bytes this
+    design moves (the states, the checkpoints and the chain's reads
+    too); the forward at chunk 8
+    timed there too, with and without the states output.  Returns (the
+    backward's row, the forward's chunk-8 case for rwkv6_scan's row)."""
+    from repro_torch.kernels import build
+    for ln in ptxas_lines(build.logs.get("rwkv6_scan_bwd", ""),
+                          "rwkv6_bwd_chain|rwkv6_bwd_body", {}):
+        log(f"rwkv6_scan_bwd build: {ln}")
     B, T, H, D, C = RWKV_TRAIN
     cases, row = [], None
     for label, (b, t, c, ds_T, moderate, s0) in {
@@ -1514,9 +1527,11 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
                                  f"against plain_states")
 
         def kern():
-            return rs.rwkv6_scan_bwd(r, k, v, w, u, states, dy, dS, chunk=c)
-        grads, again = kern(), kern()
+            return rs.rwkv6_scan_bwd(r, k, v, w, u, states, dy, dS, chunk=c,
+                                     checkpoints=True)
+        (*grads, ck), again = kern(), kern()
         torch.cuda.synchronize()
+        G, DV = rs.groups(b, H, t // c), rs.chain_split(b, H, D)
         err, frac, worst = rwkv_bwd_err(rs, grads, ins, dy, dS, c, states)
         if frac > 1.0:
             raise AssertionError(f"rwkv6_scan_bwd {label}: {frac:.2f} x "
@@ -1528,10 +1543,16 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
             raise AssertionError(f"rwkv6_scan_bwd {label}: on plain's own "
                                  f"states {e2e_frac:.2f} x its limit "
                                  f"({e2e_worst})")
-        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        c_err, c_frac, c_worst = rs.dstate_error(ck, grads[5], r, w, dy, dS,
+                                                 chunk=c, group=G)
+        if c_frac > 1.0:
+            raise AssertionError(f"rwkv6_scan_bwd {label}: the chain's "
+                                 f"checkpoints at {c_frac:.2f} x their limit "
+                                 f"against plain_dstate ({c_worst})")
+        if not all(torch.equal(x, y) for x, y in zip([*grads, ck], again)):
             raise AssertionError(f"rwkv6_scan_bwd {label}: a second call "
                                  "gave other bits")
-        del grads, again
+        del grads, again, ck
         line = (f"rwkv6_scan_bwd {label} B={b} T={t} H={H} D={D} chunk {c}: "
                 f"max_abs_err={err:.3e} ({frac:.3f} x its leaf's limit: "
                 f"max(3 x the f32 plain_backward's own error against "
@@ -1541,13 +1562,17 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
                 f"states output; those states at {s_frac:.3f} x their limit "
                 f"against plain_states ({RWKV_TOL} x max(1, the chunk's max "
                 f"|plain|), per chunk); against plain_backward on its own "
-                f"states {e2e:.3e} ({e2e_frac:.3f} x the same rule)")
-        case = dict(case=label, B=b, T=t, H=H, D=D, chunk=c, max_abs_err=err,
-                    limit_frac=frac, states_frac=s_frac,
-                    own_states_frac=e2e_frac)
+                f"states {e2e:.3e} ({e2e_frac:.3f} x the same rule); group "
+                f"{G}, chain split {DV}: the checkpoints and dstate0 against "
+                f"plain_dstate {c_err:.3e} ({c_frac:.3f} x the same rule)")
+        case = dict(case=label, B=b, T=t, H=H, D=D, chunk=c, group=G,
+                    chain_split=DV, max_abs_err=err, limit_frac=frac,
+                    states_frac=s_frac, own_states_frac=e2e_frac,
+                    checkpoints_frac=c_frac)
         if row is None:
             ms = time_ms(kern, iters=10)
             dev, names = device_ms(kern, iters=10)
+            dev_k = kernel_device_ms(kern)
             plain_ms = time_ms(lambda: rs.plain_backward(
                 r, k, v, w, u, st0, dy, dS, chunk=c), iters=2, warmup=1)
             # fp32 products per (b, h) chunk of c rows: v dS^T, (kA E) dS,
@@ -1561,14 +1586,29 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
             # are read besides: 4 B H (T / c) D^2 bytes)
             nbytes = 4 * (9 * b * t * H * D + 2 * H * D + 2 * b * H * D * D)
             bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+            # the bytes this design moves: the chain reads r and w once a
+            # column block (D / DV), dy once, and writes the checkpoints
+            # and dstate0; the body reads r, k, v, w, dy, u, the states and
+            # the checkpoints and writes dr, dk, dv, dw and du's partials
+            NC, NG = t // c, -(-(t // c) // G)
+            rows_b, ck_b = 4 * b * t * H * D, 4 * b * H * NG * D * D
+            design_bytes = ((2 * D // DV + 1) * rows_b + ck_b
+                            + 8 * b * H * D * D
+                            + 9 * rows_b + 4 * H * D
+                            + 4 * b * H * NC * D * D + ck_b
+                            + 4 * b * H * NG * D)
+            d_bms = design_bytes / PEAK_BYTES * 1e3
             line += (f" | kernel {ms:.4f} ms, plain_backward {plain_ms:.4f} "
                      f"ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.2f} "
                      f"GFLOP at the fp32 CUDA-core peak, {nbytes / 1e6:.1f} "
                      f"MB; the states read besides: "
                      f"{4 * b * H * (t // c) * D * D / 1e6:.1f} MB), "
                      f"{nbytes / ms / 1e6:.1f} GB/s = {bms / ms:.1%} of the "
-                     f"bound's rate\nrwkv6_scan_bwd profiler device time per "
-                     f"call: {dev:.4f} ms {names}")
+                     f"bound's rate; the design's bound {d_bms:.4f} ms "
+                     f"({design_bytes / 1e6:.1f} MB: the states, checkpoints "
+                     f"and chain reads too) = {d_bms / ms:.1%} of its rate"
+                     f"\nrwkv6_scan_bwd profiler device time per call: "
+                     f"{dev:.4f} ms {names}; by kernel {dev_k}")
             row = dict(name="rwkv6_scan_bwd", route="cuda",
                        source="src/repro_torch/kernels/csrc/"
                               "rwkv6_scan_bwd.cu",
@@ -1576,7 +1616,11 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
                                 "src/repro/models/rwkv6.py:113-140; no "
                                 "Pallas backward exists",
                        **case, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, library_ms=None, device_ms=dev)
+                       bound_by=by, library_ms=None, device_ms=dev,
+                       device_kernels=sorted(n for n in dev_k
+                                             if n.startswith("rwkv6_bwd")),
+                       device_ms_by_kernel=dev_k,
+                       design_bound_ms=d_bms, design_bytes=design_bytes)
             # the forward at chunk 8 (what a train step runs, with the
             # states output), timed at the same shape
             def fwd():
@@ -5736,7 +5780,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process each)")
     for name, text in build.logs.items():
         if name in ("int8_matmul", "rwkv6_scan", "spec_verify",
-                    "flash_attention_bwd"):
+                    "flash_attention_bwd", "rwkv6_scan_bwd"):
             continue      # their checks print them, by kernel
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA and bulk
-// copies into shared memory, wgmma products with their shared-memory
+// (flash_attention.cu, flash_attention_bwd.cu) and the rwkv6 scan's
+// backward (rwkv6_scan_bwd.cu): mbarriers, TMA and bulk copies into shared
+// memory, 4-byte cp.async copies, wgmma products with their shared-memory
 // descriptors, and the 4-D tensor maps over (B, S, heads, D) strides.
 // kernels/build.py hashes this header with every source, so an edit
 // rebuilds each library.
@@ -33,6 +34,10 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
                "r"(count)
                : "memory");
+}
+// Make the initialised mbarriers visible to the async proxy (the copies).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
@@ -81,6 +86,47 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// Order this thread's earlier reads and writes of shared memory (the
+// generic proxy) before the asynchronous copies issued after the next
+// barrier (the async proxy), which may overwrite the same bytes.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// --- cp.async: 4-byte copies into shared memory, in commit groups -------
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most `n` (0-3) of this thread's commit groups are pending.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+  else if (n == 2)
+    asm volatile("cp.async.wait_group 2;" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 3;" ::: "memory");
+}
+
+// --- mma m8n8k4 in fp64 (the fp64 tensor cores) ---------------------------
+// c (8 x 8) += a (8 x 4) b (4 x 8), one warp.  Fragments (lane = 4 g + q):
+// a = A[g][q], b = B[q][g], c[i] = C[g][2 q + i].
+__device__ __forceinline__ void dmma_m8n8k4(double (&c)[2], double a,
+                                            double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, "
+      "{%0,%1};"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
 }
 
 // --- wgmma ---------------------------------------------------------------

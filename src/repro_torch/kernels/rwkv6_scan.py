@@ -26,6 +26,13 @@ out as its formulas (no autograd), against which the tests and
 ``chip_smoke.py`` hold the backward kernel by one rule
 (``backward_error``), and ``plain_states`` the forward's chunk-start
 states, against which they hold the kernel's (``states_error``).
+
+The backward runs as two device kernels a call: a chain that carries
+only the gradient of the state through the chunks and writes it every
+``groups(...)`` chunks as a checkpoint (its columns split by
+``chain_split``), and a body that walks the groups of chunks in parallel
+from those checkpoints.  ``plain_dstate`` is the chain in plain PyTorch,
+against which ``dstate_error`` holds the checkpoints.
 """
 
 from __future__ import annotations
@@ -45,6 +52,13 @@ EPS = 1e-24                 # the clamp of kA's divisor, max(A_incl, EPS)
 # value columns a CTA owns (the kernel's DV), by head dim: at D = 64, 32
 # (B = 1, H = 64: 128 CTAs of 16 warps, one an SM); below it, 16
 SPLIT = {16: 16, 32: 16, 64: 32}
+# the backward's rules (``groups``, ``chain_split``): the card's SMs, the
+# waves of body CTAs a group size must fill (two CTAs an SM), the largest
+# group, and the value-column blocks the chain kernel has instances for
+SMS = 132
+BODY_WAVES = 16
+MAX_GROUP = 32
+CHAIN_SPLITS = {16: (16,), 32: (16, 32), 64: (16, 32, 64)}
 
 
 def split(B: int, H: int, D: int) -> int:
@@ -53,6 +67,33 @@ def split(B: int, H: int, D: int) -> int:
     if D not in SPLIT or B < 1 or H < 1:
         raise ValueError(f"no split for B={B} H={H} D={D}")
     return SPLIT[D]
+
+
+def groups(B: int, H: int, NC: int) -> int:
+    """G, the chunks one CTA of the backward's body walks from its
+    checkpoint: the largest power of two up to ``MAX_GROUP`` whose CTAs,
+    B H ceil(NC / G), fill ``BODY_WAVES`` waves of two CTAs an SM; 1 where
+    none does.  A ragged last group (NC not a multiple of G) and G > NC
+    are both taken."""
+    if B < 1 or H < 1 or NC < 1:
+        raise ValueError(f"no group size for B={B} H={H} NC={NC}")
+    want, G = BODY_WAVES * 2 * SMS, 1
+    while 2 * G <= MAX_GROUP and B * H * -(-NC // (2 * G)) >= want:
+        G *= 2
+    return G
+
+
+def chain_split(B: int, H: int, D: int) -> int:
+    """DV, the value columns one CTA of the backward's chain owns: the
+    widest of ``CHAIN_SPLITS[D]`` whose CTAs, (D / DV) B H, give every SM
+    one; else the narrowest.  Each CTA of a head forms that head's decays
+    again, so the widest that fills the card does the least work."""
+    if D not in CHAIN_SPLITS or B < 1 or H < 1:
+        raise ValueError(f"no chain split for B={B} H={H} D={D}")
+    for dv in reversed(CHAIN_SPLITS[D]):
+        if D // dv * B * H >= SMS:
+            return dv
+    return CHAIN_SPLITS[D][0]
 
 
 def aligned(r, k, v, w) -> bool:
@@ -86,7 +127,7 @@ def _bind_bwd():
     if fn is None:
         fn = build.load(BWD_NAME).rwkv6_scan_bwd_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 14 + [I] * 5 + [P]
+        fn.argtypes = [P] * 15 + [I] * 8 + [P]
         fn.restype = I
         _fns[BWD_NAME] = fn
     return fn
@@ -190,44 +231,67 @@ def forward_with_states(r, k, v, w, u, state0, *, chunk=64):
     return _launch(r, k, v, w, u, state0, chunk, True)
 
 
-def rwkv6_scan_bwd(r, k, v, w, u, states, dy, dS_T=None, *, chunk=64):
+def rwkv6_scan_bwd(r, k, v, w, u, states, dy, dS_T=None, *, chunk=64,
+                   group=None, dv=None, checkpoints=False):
     """dr, dk, dv, dw (B, T, H, D), du (H, D) and dstate0 (B, H, D, D)
     of ``rwkv6_scan`` at ``chunk`` from its inputs, the chunk-start
     states of ``forward_with_states``, the output's gradient ``dy`` and
-    the final state's ``dS_T`` (None: zeros), all fp32.  One launch, one
-    CTA a (batch, head) walking its chunks in reverse; the CTAs' du
-    partials (B, H, D) are summed over the batch here, in order."""
+    the final state's ``dS_T`` (None: zeros), all fp32.  Two device
+    kernels, counted as one launch: the chain (grid (D / dv, H, B)) writes
+    the state's gradient at the end of every ``group``-th chunk, and the
+    body (grid (ceil(T / chunk / group), H, B)) walks each group from its
+    checkpoint.  ``group`` and ``dv`` default to ``groups`` and
+    ``chain_split``; the result is the same bits whatever they are.  The
+    body's du partials (B, H, groups, D) are summed over the groups, then
+    the batch, here.  With ``checkpoints`` the chain's checkpoints (B, H,
+    groups, D, D) come last."""
     chunk = _chunk(r.shape[1], chunk)
     B, T, H, D = r.shape
-    # the kernel reads packed rows; a strided input is packed here first
+    # the kernels read packed rows; a strided input is packed here first
     r, k, v, w, u, states, dy = (t.contiguous() for t in (r, k, v, w, u,
                                                           states, dy))
     dS = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
           if dS_T is None else dS_T.contiguous())
     _check(r, k, v, w, u, dS, chunk, BWD_NAME)
+    NC = T // chunk
     for name, t, shape in (("dy", dy, (B, T, H, D)),
-                           ("states", states, (B, H, T // chunk, D, D))):
+                           ("states", states, (B, H, NC, D, D))):
         if t.shape != shape or t.dtype != torch.float32 \
                 or t.device != r.device:
             raise ValueError(f"{BWD_NAME}: {name} must be fp32 {shape} on "
                              f"{r.device}; got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
+    if states.data_ptr() % 16:   # the body reads its rows as 16-byte vectors
+        raise ValueError(f"{BWD_NAME}: states must start on 16 bytes")
+    G = groups(B, H, NC) if group is None else group
+    DV = chain_split(B, H, D) if dv is None else dv
+    if G < 1 or DV not in CHAIN_SPLITS[D]:
+        raise ValueError(f"{BWD_NAME}: group {G} / dv {DV}: need group >= 1 "
+                         f"and dv in {CHAIN_SPLITS[D]}")
+    NG = -(-NC // G)
     fn = _bind_bwd()
-    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    dr, dk, dv_, dw = (torch.empty_like(r) for _ in range(4))
+    du_part = torch.empty((B, H, NG, D), dtype=torch.float32,
+                          device=r.device)
     ds0 = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    ckpt = torch.empty((B, H, NG, D, D), dtype=torch.float32,
+                       device=r.device)
+    tma = aligned(r, k, v, w) and dy.data_ptr() % 16 == 0
     with build.on_device(r):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), states.data_ptr(), dy.data_ptr(),
-                 dS.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 dw.data_ptr(), du_part.data_ptr(), ds0.data_ptr(), B, T, H,
-                 D, chunk, stream)
+                 dS.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
+                 dw.data_ptr(), du_part.data_ptr(), ds0.data_ptr(),
+                 ckpt.data_ptr(), B, T, H, D, chunk, G, DV, int(tma), stream)
     if err != 0:
-        what = {-1: "shape refused"}.get(err, f"cudaError {err}")
-        raise RuntimeError(f"{BWD_NAME} launch failed: {what}")
+        what = {-1: "shape refused", -2: "tensor map not encoded"}.get(
+            err, f"cudaError {err}")
+        raise RuntimeError(f"{BWD_NAME} launch failed (group {G}, dv "
+                           f"{DV}): {what}")
     build.count_launch(rwkv6_scan_bwd)
-    return dr, dk, dv, dw, du_part.sum(0), ds0
+    out = (dr, dk, dv_, dw, du_part.sum(2).sum(0), ds0)
+    return (*out, ckpt) if checkpoints else out
 
 
 rwkv6_scan_bwd.launches = 0
@@ -339,6 +403,36 @@ def states_error(states, r, k, v, w, *, chunk, tol) -> float:
 BWD_ULPS = 16
 
 
+def _leaf_error(name, g, a, b) -> tuple[float, float, str]:
+    """(max abs error, error over its limit, figures) of the leaf ``g``
+    against the fp64 reference ``b``, the fp32 plain version giving
+    ``a``: within max(3x ``a``'s own error, ``BWD_ULPS`` fp32 ulps of
+    max |b|).  Raises ValueError on a non-finite leaf or one of another
+    shape or type than ``a``."""
+    if g.shape != a.shape or g.dtype != a.dtype:
+        raise ValueError(f"{name}: {g.dtype} {tuple(g.shape)}, need "
+                         f"{a.dtype} {tuple(a.shape)}")
+    if not torch.isfinite(g).all():
+        raise ValueError(f"{BWD_NAME}: a non-finite {name}")
+    top = float(b.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 23)
+    own = float((a.double() - b).abs().max())
+    e = float((g.double() - b).abs().max())
+    return e, e / max(3 * own, BWD_ULPS * ulp), (
+        f"{name}: error {e:.3e}, the fp32 plain version's own {own:.3e}, "
+        f"max |{name}| {top:.3e}")
+
+
+def _worst(named) -> tuple[float, float, str]:
+    err, frac, worst = 0.0, 0.0, ""
+    for name, g, a, b in named:
+        e, f, what = _leaf_error(name, g, a, b)
+        err = max(err, e)
+        if f >= frac:
+            frac, worst = f, what
+    return err, frac, worst
+
+
 def backward_error(grads, r, k, v, w, u, state0, dy, dS_T=None, *, chunk,
                    states=None) -> tuple[float, float, str]:
     """(max abs error, worst leaf's error over its limit, that leaf's
@@ -354,25 +448,47 @@ def backward_error(grads, r, k, v, w, u, state0, dy, dS_T=None, *, chunk,
         *(t.double() for t in ins), dy.double(),
         None if dS_T is None else dS_T.double(), chunk=chunk,
         states=None if states is None else states.double())
-    err, frac, worst = 0.0, 0.0, ""
-    for name, g, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate0"),
-                             grads, ref32, ref64):
-        if g.shape != a.shape or g.dtype != a.dtype:
-            raise ValueError(f"{name}: {g.dtype} {tuple(g.shape)}, need "
-                             f"{a.dtype} {tuple(a.shape)}")
-        if not torch.isfinite(g).all():
-            raise ValueError(f"{BWD_NAME}: a non-finite {name}")
-        top = float(b.abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 23)
-        own = float((a.double() - b).abs().max())
-        e = float((g.double() - b).abs().max())
-        err = max(err, e)
-        f = e / max(3 * own, BWD_ULPS * ulp)
-        if f >= frac:
-            frac, worst = f, (f"{name}: error {e:.3e}, the fp32 "
-                              f"plain_backward's own {own:.3e}, max "
-                              f"|{name}| {top:.3e}")
-    return err, frac, worst
+    return _worst(zip(("dr", "dk", "dv", "dw", "du", "dstate0"), grads,
+                      ref32, ref64))
+
+
+def dstate_error(ckpt, ds0, r, w, dy, dS_T=None, *, chunk, group
+                 ) -> tuple[float, float, str]:
+    """``backward_error``'s rule for the chain's output: the checkpoints
+    (B, H, ceil(NC / group), D, D) and dstate0 against ``plain_dstate``
+    in fp64, each within max(3x the fp32 ``plain_dstate``'s own error,
+    ``BWD_ULPS`` fp32 ulps of its max |value|)."""
+    ref32 = plain_dstate(r, w, dy, dS_T, chunk=chunk, group=group)
+    ref64 = plain_dstate(r.double(), w.double(), dy.double(),
+                         None if dS_T is None else dS_T.double(),
+                         chunk=chunk, group=group)
+    return _worst(zip(("checkpoints", "dstate0"), (ckpt, ds0), ref32,
+                      ref64))
+
+
+def plain_dstate(r, w, dy, dS_T=None, *, chunk=64, group=1):
+    """The plain PyTorch version of the backward's chain: (checkpoints
+    (B, H, ceil(NC / group), D, D), dstate0 (B, H, D, D)).  Checkpoint g
+    is the gradient of the end state of chunk min((g + 1) group, NC) - 1
+    (dS_T, or zeros, for the last group), carried as ``plain_backward``
+    carries it, dS <- rA^T dy + A_end * dS per chunk in reverse, in fp32
+    (fp64 for fp64 inputs)."""
+    B, T, H, D = r.shape
+    chunk = _chunk(T, chunk)
+    NC = T // chunk
+    dt = _dtype(r)
+    r, w, dy = (a.to(dt) for a in (r, w, dy))
+    dS = (torch.zeros((B, H, D, D), dtype=dt, device=r.device)
+          if dS_T is None else dS_T.to(dt))
+    ckpts = [None] * -(-NC // group)
+    for c in reversed(range(NC)):
+        if c == NC - 1 or c % group == group - 1:
+            ckpts[c // group] = dS
+        sl = slice(c * chunk, (c + 1) * chunk)
+        _, _, E, rA, _ = _chunk_terms(r[:, sl], r[:, sl], w[:, sl])
+        dS = torch.einsum("bthk,bthv->bhkv", rA, dy[:, sl]) \
+            + E[..., None] * dS
+    return torch.stack(ckpts, 2), dS
 
 
 def plain_backward(r, k, v, w, u, state0, dy, dS_T=None, *, chunk=64,

@@ -1709,6 +1709,66 @@ def test_rwkv6_backward_matches_plain(cuda, D, T, chunk, ds_T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", rs.HEAD_DIMS)
+@pytest.mark.parametrize("T,group", [(40, 2), (24, 8), (8, 4)])
+def test_rwkv6_backward_groups_and_checkpoints(cuda, D, T, group):
+    """The backward's two kernels at chunk 8 on a ragged last group (5
+    chunks in groups of 2), on fewer chunks than a group (3 of 8) and on
+    one chunk, at every head dim: one launch counted a call; every leaf
+    within ``backward_error``'s rule of ``plain_backward`` on the
+    kernel's chunk-start states; the chain's checkpoints and dstate0
+    within ``dstate_error``'s rule of ``plain_dstate``; bit-equal on a
+    second call; dr, dk, dv, dw and dstate0 the same bits at group 1 and
+    at every chain split (the body recomputes dS inside a group with the
+    chain's operations), du within the rule there."""
+    a = list(_rwkv(cuda, 2, T, 3, D, T + D, -6.0))
+    gen = torch.Generator(cuda).manual_seed(D + group)
+    dy = torch.randn((2, T, 3, D), generator=gen, device=cuda)
+    dS = torch.randn((2, 3, D, D), generator=gen, device=cuda)
+    _, _, states = rs.forward_with_states(*a, chunk=8)
+    n = rs.rwkv6_scan_bwd.launches
+    *grads, ck = rs.rwkv6_scan_bwd(*a[:5], states, dy, dS, chunk=8,
+                                   group=group, checkpoints=True)
+    assert rs.rwkv6_scan_bwd.launches == n + 1
+    assert ck.shape == (2, 3, -(-(T // 8) // group), D, D)
+    _hold_rwkv_grads(grads, a, dy, dS, 8, states)
+    _, frac, what = rs.dstate_error(ck, grads[5], a[0], a[3], dy, dS,
+                                    chunk=8, group=group)
+    assert frac <= 1.0, (frac, what)
+    again = rs.rwkv6_scan_bwd(*a[:5], states, dy, dS, chunk=8, group=group,
+                              checkpoints=True)
+    assert all(torch.equal(x, y) for x, y in zip([*grads, ck], again))
+    for g2, dv in [(1, None)] + [(group, dv) for dv in rs.CHAIN_SPLITS[D]]:
+        other = rs.rwkv6_scan_bwd(*a[:5], states, dy, dS, chunk=8,
+                                  group=g2, dv=dv)
+        assert all(torch.equal(grads[i], other[i]) for i in (0, 1, 2, 3, 5))
+        _hold_rwkv_grads(other, a, dy, dS, 8, states)
+
+
+@pytest.mark.cuda
+def test_rwkv6_backward_reads_unaligned_inputs(cuda):
+    """r starting 4 bytes past a 16-byte boundary sends the backward's
+    loads to 4-byte cp.async copies (``aligned`` is False) and gives the
+    same bits as the TMA loads of an aligned copy; states that do not
+    start on 16 bytes are refused."""
+    a = list(_rwkv(cuda, 2, 64, 3, 64, 23, -6.0))
+    gen = torch.Generator(cuda).manual_seed(23)
+    dy = torch.randn((2, 64, 3, 64), generator=gen, device=cuda)
+    _, _, states = rs.forward_with_states(*a, chunk=8)
+    buf = torch.empty(a[0].numel() + 1, device=cuda)
+    buf[1:] = a[0].flatten()
+    r = buf[1:].view(a[0].shape)
+    assert r.data_ptr() % 16 and not rs.aligned(r, *a[1:4])
+    got = rs.rwkv6_scan_bwd(r, *a[1:5], states, dy, chunk=8)
+    want = rs.rwkv6_scan_bwd(*a[:5], states, dy, chunk=8)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    sbuf = torch.empty(states.numel() + 1, device=cuda)
+    sbuf[1:] = states.flatten()
+    with pytest.raises(ValueError, match="16 bytes"):
+        rs.rwkv6_scan_bwd(*a[:5], sbuf[1:].view(states.shape), dy, chunk=8)
+
+
+@pytest.mark.cuda
 def test_rwkv6_autograd_goes_through_the_backward_kernel(cuda):
     """With grad, ``ops.rwkv6_scan`` goes through ``RWKV6Scan``: one
     forward launch (with the chunk-start states), one backward launch,

@@ -267,11 +267,105 @@ def test_the_kernel_paths_refuse_cpu_tensors():
 
 def test_backward_kernel_source_covers_the_head_dims():
     """The head dims ``csrc/rwkv6_scan_bwd.cu`` instantiates are the
-    forward's, and the build lists the source."""
+    forward's, its chain instances are ``CHAIN_SPLITS``, and the build
+    lists the source."""
     src = (pathlib.Path(rs.__file__).parent / "csrc" / "rwkv6_scan_bwd.cu"
            ).read_text()
     dims = {int(d) for d in re.findall(r"^\s*RWKV6_BWD_CASE\((\d+)\)$", src,
                                        re.M)}
     assert dims == set(rs.HEAD_DIMS)
+    chains = set(re.findall(r"^\s*RWKV6_BWD_CHAIN\((\d+), (\d+)\)$", src,
+                            re.M))
+    assert chains == {(str(d), str(dv)) for d, dvs in rs.CHAIN_SPLITS.items()
+                      for dv in dvs}
     assert "rwkv6_scan_bwd" in build.KERNELS
     assert rs.backward_kernel is rs.rwkv6_scan_bwd
+
+
+def _suffix_dstate0(xs, dy, dS, chunk, c0):
+    """The gradient of the state at the start of chunk ``c0``: dstate0 of
+    ``plain_backward`` on the rows from chunk ``c0`` on, started from the
+    forward's state there (dS_T itself past the last chunk)."""
+    t = [torch.from_numpy(a) for a in xs]
+    T = t[0].shape[1]
+    if c0 * chunk == T:
+        return torch.from_numpy(dS) if dS is not None else torch.zeros_like(
+            t[5])
+    states = rs.plain_states(*t[:4], t[5], chunk=chunk)
+    sl = slice(c0 * chunk, T)
+    return rs.plain_backward(*(a[:, sl] for a in t[:4]), t[4],
+                             states[:, :, c0], torch.from_numpy(dy)[:, sl],
+                             None if dS is None else torch.from_numpy(dS),
+                             chunk=chunk)[5]
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("T,chunk", [(32, 4), (64, 8), (256, 64)])
+@pytest.mark.parametrize("ds_T", [False, True])
+def test_plain_dstate_is_the_gradient_plain_backward_carries(D, T, chunk,
+                                                            ds_T):
+    """``plain_dstate`` (the backward chain's plain version) in float64:
+    checkpoint g equals the gradient of the end state of chunk min((g + 1)
+    group, NC) - 1 that ``plain_backward`` carries there (its dstate0 on
+    the rows after that chunk), and dstate0 its dstate0, within 1e-12 of
+    the leaf's max; group 3 leaves a ragged last group."""
+    *xs, dy, dS = _inputs(1, T, 2, D, seed=T + D)
+    dS = dS if ds_T else None
+    NC, group = T // chunk, 3
+    ck, ds0 = rs.plain_dstate(*(torch.from_numpy(a) for a in
+                                (xs[0], xs[3], dy)),
+                              None if dS is None else torch.from_numpy(dS),
+                              chunk=chunk, group=group)
+    assert ck.shape == (1, 2, -(-NC // group), D, D)
+    want = [_suffix_dstate0(xs, dy, dS, chunk, min((g + 1) * group, NC))
+            for g in range(ck.shape[2])]
+    for got, ref in [*zip(ck.unbind(2), want),
+                     (ds0, _suffix_dstate0(xs, dy, dS, chunk, 0))]:
+        top = max(float(ref.abs().max()), 1e-30)
+        assert float((got - ref).abs().max()) <= 1e-12 * top
+
+
+@pytest.mark.parametrize("case,held", [
+    ("plain fp32", True), ("zero checkpoint", False),
+    ("other group", False), ("dstate0 moved", False)])
+def test_dstate_error_tells_a_wrong_checkpoint(case, held):
+    """``dstate_error`` (``backward_error``'s rule for the chain's
+    checkpoints and dstate0) passes the fp32 ``plain_dstate``'s own
+    result and fails a zeroed checkpoint, checkpoints of another group
+    size and a moved dstate0."""
+    *xs, dy, dS = _inputs(2, 64, 2, 16, seed=19, dtype=np.float32)
+    r, w, dy, dS = (torch.from_numpy(a) for a in (xs[0], xs[3], dy, dS))
+    ck, ds0 = rs.plain_dstate(r, w, dy, dS, chunk=8, group=3)
+    if case == "zero checkpoint":
+        ck = ck.clone()
+        ck[1, 0, 1] = 0
+    elif case == "other group":
+        ck = rs.plain_dstate(r, w, dy, dS, chunk=8, group=2)[0][:, :, :3]
+    elif case == "dstate0 moved":
+        ds0 = ds0 * 1.01
+    _, frac, _ = rs.dstate_error(ck, ds0, r, w, dy, dS, chunk=8, group=3)
+    assert (frac <= 1.0) is held, frac
+
+
+def test_group_and_chain_split_rules():
+    """The backward's two rules at rwkv6-7b's train shape (B 4, H 64, D
+    64, 192 chunks of 8), at its prefill chunk 64 (B 1, 24 chunks), on a
+    ragged last group, with fewer chunks than a group and with one chunk;
+    and the refusals."""
+    G = rs.groups(4, 64, 192)
+    assert G == 8 and 192 % G == 0
+    assert 4 * 64 * (192 // G) >= rs.BODY_WAVES * 2 * rs.SMS
+    assert 4 * 64 * -(-192 // (2 * G)) < rs.BODY_WAVES * 2 * rs.SMS
+    assert rs.groups(1, 64, 24) == 1                  # chunk 64, B 1
+    assert rs.groups(4, 64, 150) == 8 and 150 % 8 == 6  # 19 groups, ragged
+    assert rs.groups(128, 64, 3) == rs.MAX_GROUP > 3  # fewer chunks than G
+    assert rs.groups(2, 3, 1) == 1                    # one chunk
+    assert rs.chain_split(4, 64, 64) == 64            # 256 CTAs
+    assert rs.chain_split(1, 64, 64) == 16            # 256 CTAs
+    assert rs.chain_split(1, 64, 32) == 16
+    assert rs.chain_split(2, 3, 16) == 16
+    for bad in ((0, 64, 192), (4, 64, 0)):
+        with pytest.raises(ValueError):
+            rs.groups(*bad)
+    with pytest.raises(ValueError):
+        rs.chain_split(1, 1, 48)
