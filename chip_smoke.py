@@ -134,6 +134,21 @@ the result line):
                             in-process at full width
                each of the three with its launches equal to the engines'
                own program counts (24 x cold prefills, 24 x decode steps)
+               roofline     the dry-run tools' steps
+                            (``launch.steps.build(..., concrete=True)``)
+                            at llama-1.5b's three cells' own lengths, each
+                            global batch cut to one card: train_4k (B 8 of
+                            256, microbatches 4, remat), prefill_32k (B 4
+                            of 32), decode_32k (B 16 of 128, every cache
+                            filled to 32767 tokens); per cell the meta-
+                            device dry run of the cut shape, the median
+                            step over 3 runs, the profiler's busy time,
+                            the peak allocated memory against the dry
+                            run's, its roofline terms, model FLOPs and
+                            bytes, roofline fraction and mfu; every kernel
+                            call held to its plain version (a prefill's
+                            last 512 query rows against all 32768 keys);
+                            launches exactly 6 runs' worth
                then rwkv6-7b at full width (bf16, seed 0; llama freed):
                rwkv         ``Engine(slots=4, max_len=2048)``: four
                             requests, rwkv6_scan launched 32 times per
@@ -268,11 +283,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# H100 SXM data sheet, dense: bf16 tensor cores, fp32 on the CUDA cores
-# (no tensor cores), HBM3 bandwidth
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# the kernels' costs and the H100 SXM data sheet's peaks, as the dry-run
+# tools take them: every bound below is ``roofline.<kernel>_cost(...)``
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW, PEAK_BF16_FLOPS  # noqa: E402
 BF16_TOL = 2e-2            # kernel vs plain, per element, abs
 SPEC_TOL = 1e-6            # spec_accept's dist, kernel vs plain, abs
 RWKV_TOL = 5e-4            # rwkv6_scan output and state, abs (JAX suite's)
@@ -355,12 +369,6 @@ def device_ms(fn, iters=40) -> tuple[float, list[str]]:
                     .removeprefix("void ").split("<")[0].split("(")[0][:48]
                     for e in evs})
     return busy / 1e3 / iters, names
-
-
-def bound(flops: float, nbytes: float,
-          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
-    tf, tb = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (tf, "operations") if tf >= tb else (tb, "bytes")
 
 
 def max_err(a, b) -> float:
@@ -468,10 +476,9 @@ def check_flash(fa, gen) -> dict:
             lib_dev, lib_names = device_ms(sdpa)
             if not torch.equal(o, fa.flash_attention(q, k, v, causal=True)):
                 raise AssertionError("flash: a second call gave other bits")
-            pairs = S * (S + 1) / 2
-            flops = 4 * B * H * D * pairs
-            nbytes = 2 * B * S * D * (2 * H + 2 * KV)
-            bms, by = bound(flops, nbytes)
+            cost = roofline.flash_cost(B, S, S, H, KV, D)
+            flops = cost.flops
+            bms, by = cost.bound()
             row = dict(name="flash_attention", route="cuda",
                        source="src/repro_torch/kernels/csrc/"
                               "flash_attention.cu",
@@ -490,13 +497,6 @@ def check_flash(fa, gen) -> dict:
     return row
 
 
-def band_pairs(S: int, window: int) -> int:
-    """(query, key) pairs of causal attention over S tokens, within
-    ``window`` keys of the query when there is one."""
-    if not window:
-        return S * (S + 1) // 2
-    w = min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
 
 
 # flash cases beyond the slice's: (label, B, Sq, Skv, H, KV, D, causal,
@@ -555,10 +555,10 @@ def wide_flash(fa, gen) -> list:
             raise AssertionError(f"flash {label} yardstick: SDPA is "
                                  f"{lib_err} from plain")
         lib_ms = time_ms(sdpa)
-        pairs = band_pairs(Sq, window) if causal else Sq * Skv
-        flops = 4 * B * H * D * pairs
-        nbytes = 2 * B * D * (2 * Sq * H + 2 * Skv * KV)
-        bms, by = bound(flops, nbytes)
+        cost = roofline.flash_cost(B, Sq, Skv, H, KV, D, causal=causal,
+                                   window=window)
+        flops = cost.flops
+        bms, by = cost.bound()
         log(f"flash {label} B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
             f"{kw}: max_abs_err={err:.3e} ({frac:.2f} x its row's limit), "
             f"bit-equal on a second call | kernel {ms:.4f} ms, plain "
@@ -703,10 +703,10 @@ def check_flash_bwd(fa, gen) -> dict:
         lib_ms = time_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True))
         del qt, kt, vt, ot, dot
-        pairs = band_pairs(Sq, window) if causal else Sq * Skv
-        flops = 2.5 * 4 * B * H * D * pairs
-        nbytes = 2 * B * D * (4 * Sq * H + 4 * Skv * KV) + 4 * B * H * Sq
-        bms, by = bound(flops, nbytes)
+        cost = roofline.flash_bwd_cost(B, Sq, Skv, H, KV, D, causal=causal,
+                                       window=window)
+        flops = cost.flops
+        bms, by = cost.bound()
         line = (f"flash bwd {label} B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
                 f"D={D} {kw} ({design}): max_abs_err={err:.3e} ({frac:.3f} "
                 f"x its element's limit; {rowf:.2f} x the row rule's), "
@@ -884,10 +884,11 @@ def check_paged(da, gen) -> dict:
     lib_dev, lib_names = device_ms(sdpa)
     live_pages = int(sum(int(p) // ps + 1 for p in pos.tolist()))
     kv_bytes = 2 * live_pages * ps * KV * D * 2
-    nbytes = kv_bytes + 2 * B * H * D * 2 + pt.numel() * 4 + B * 4
     valid = sum(int(p) + 1 for p in pos.tolist())
-    flops = 4 * H * D * valid
-    bms, by = bound(flops, nbytes)
+    cost = roofline.paged_decode_cost(B, H, KV, D, live_pages * ps, valid,
+                                      pt.numel())
+    nbytes = cost.bytes
+    bms, by = cost.bound()
     pages, splits = da.paged_split(NP, ps)
     # every page of the timed table is mapped: a run is live up to pos
     live_ctas = KV * sum(int(p) // (pages * ps) + 1 for p in pos.tolist())
@@ -1003,9 +1004,9 @@ def check_decode(da, gen) -> dict:
     lib_dev, lib_names = device_ms(sdpa)
     valid = sum(int(p) + 1 for p in pos.tolist())
     kv_bytes = 2 * valid * KV * D * 2
-    nbytes = kv_bytes + valid * 4 + 2 * B * H * D * 2 + B * 4
-    flops = 4 * H * D * valid
-    bms, by = bound(flops, nbytes)
+    cost = roofline.decode_cost(B, H, KV, D, valid)
+    nbytes = cost.bytes
+    bms, by = cost.bound()
     log(f"decode_attention timed B={B} Sc={Sc} positions {pos.tolist()}: "
         f"max_abs_err={err:.3e} ({frac:.2f} x its row's limit), kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
@@ -1095,10 +1096,10 @@ def wide_paged(da, gen) -> list:
                                  f"{lib_err} from plain")
         lib_ms = time_ms(sdpa, iters=40)
         valid = sum(_live(pos.tolist(), window))
-        nbytes = (2 * valid * KV * D * 2 + 2 * B * H * D * 2
-                  + pt.numel() * 4 + B * 4)
-        flops = 4 * H * D * valid
-        bms, by = bound(flops, nbytes)
+        cost = roofline.paged_decode_cost(B, H, KV, D, valid, valid,
+                                          pt.numel())
+        nbytes = cost.bytes
+        bms, by = cost.bound()
         log(f"paged_decode {label} B={B} H={H} KV={KV} D={D} window "
             f"{window} positions {pos.tolist()}: max_abs_err={err:.3e} "
             f"({frac:.2f} x its row's limit), bit-equal on a second call | "
@@ -1183,10 +1184,9 @@ def wide_decode(da, gen) -> list:
                                  f"{lib_err} from plain")
         lib_ms = time_ms(sdpa, iters=40)
         valid = sum(_live(at, window, Sc))
-        nbytes = (2 * valid * KV * D * 2 + B * Sc * 4 + 2 * B * H * D * 2
-                  + B * 4)
-        flops = 4 * H * D * valid
-        bms, by = bound(flops, nbytes)
+        cost = roofline.decode_cost(B, H, KV, D, valid, B * Sc)
+        nbytes = cost.bytes
+        bms, by = cost.bound()
         log(f"decode_attention {label} B={B} Sc={Sc} H={H} KV={KV} D={D} "
             f"window {window} positions {list(at)}: max_abs_err="
             f"{err:.3e} ({frac:.2f} x its row's limit), bit-equal on a "
@@ -1224,13 +1224,6 @@ def _spec_case(kind, g, V, gen):
         q[0, d[0]] = 0.0
     u = torch.rand((g,), generator=gen, device="cuda")
     return d.to(torch.int32), q.contiguous(), p.contiguous(), u
-
-
-def spec_bytes(g: int, n: int, V: int) -> int:
-    """What ``spec_accept``'s inputs need: the tokens, uniforms and both
-    token probabilities of the drafts up to the cut (min(n + 1, g) of
-    each), row n of p (and of q when n < g), dist written once, and n."""
-    return 4 * 4 * min(n + 1, g) + (2 if n < g else 1) * V * 4 + V * 4 + 4
 
 
 def check_spec(sv, gen) -> dict:
@@ -1298,8 +1291,9 @@ def check_spec(sv, gen) -> dict:
                                  "gave other bits")
         n = int(n1)
         ms = time_ms(lambda: sv.spec_accept(d, q, p, u), iters=100)
-        nbytes = spec_bytes(4, n, V)
-        bms, by = bound(4 * min(n + 1, 4) + 3 * V, nbytes)
+        cost = roofline.spec_accept_cost(4, V, n)
+        nbytes = cost.bytes
+        bms, by = cost.bound()
         timed[V, kind] = dict(n=n, ms=ms, bound_ms=bms, bound_by=by,
                               nbytes=nbytes, args=(d, q, p, u))
     floor_ms = time_ms(lambda: torch.cuda._sleep(0), iters=100)
@@ -1415,13 +1409,9 @@ def check_rwkv6(rs, gen) -> dict:
     dev, names = device_ms(kern)
     plain_ms = time_ms(lambda: rs.plain(r, k, v, w, u, s0, chunk=64),
                        iters=5)
-    # fp32 products per chunk of c rows and head: rA S and (kA A_end)^T v
-    # (2 c D^2 each) and the strictly lower scores and their product with
-    # v (D c (c - 1) each)
-    flops = B * H * sum(4 * c * D * D + 2 * D * c * (c - 1)
-                        for c in [64] * (T // 64))
-    nbytes = 4 * (5 * B * T * H * D + H * D + 2 * B * H * D * D)
-    bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    cost = roofline.rwkv6_scan_cost(B, T, H, D, 64)
+    flops, nbytes = cost.flops, cost.bytes
+    bms, by = cost.bound()
     log(f"rwkv6_scan timed B={B} T={T} H={H} D={D} chunk 64: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
         f"{flops / 1e9:.2f} GFLOP at the fp32 CUDA-core peak, "
@@ -1575,17 +1565,9 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
             dev_k = kernel_device_ms(kern)
             plain_ms = time_ms(lambda: rs.plain_backward(
                 r, k, v, w, u, st0, dy, dS, chunk=c), iters=2, warmup=1)
-            # fp32 products per (b, h) chunk of c rows: v dS^T, (kA E) dS,
-            # dy S^T and rA^T dy (c D^2 FMAs each), the five strictly lower
-            # c x c products (P, dP, P^T dy, dP kA, dP^T rA; c (c-1) / 2 D
-            # each), dE (D^2 + c D)
-            fma = 4 * c * D * D + 5 * c * (c - 1) // 2 * D + D * D + c * D
-            flops = 2 * fma * b * H * (t // c)
-            # r, k, v, w, dy, u, dS_T read and dr, dk, dv, dw, du, dstate0
-            # written once (the chunk-start states, the forward's output,
-            # are read besides: 4 B H (T / c) D^2 bytes)
-            nbytes = 4 * (9 * b * t * H * D + 2 * H * D + 2 * b * H * D * D)
-            bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+            cost = roofline.rwkv6_scan_bwd_cost(b, t, H, D, c)
+            flops, nbytes = cost.flops, cost.bytes
+            bms, by = cost.bound()
             # the bytes this design moves: the chain reads r and w once a
             # column block (D / DV), dy once, and writes the checkpoints
             # and dstate0; the body reads r, k, v, w, dy, u, the states and
@@ -1597,7 +1579,7 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
                             + 9 * rows_b + 4 * H * D
                             + 4 * b * H * NC * D * D + ck_b
                             + 4 * b * H * NG * D)
-            d_bms = design_bytes / PEAK_BYTES * 1e3
+            d_bms = design_bytes / HBM_BW * 1e3
             line += (f" | kernel {ms:.4f} ms, plain_backward {plain_ms:.4f} "
                      f"ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.2f} "
                      f"GFLOP at the fp32 CUDA-core peak, {nbytes / 1e6:.1f} "
@@ -1631,9 +1613,9 @@ def check_rwkv6_bwd(rs, gen) -> tuple[dict, dict]:
             f_dev, f_names = device_ms(fwd, iters=10)
             f_plain = time_ms(lambda: rs.plain(r, k, v, w, u, st0, chunk=c),
                               iters=2, warmup=1)
-            f_flops = b * H * (t // c) * (4 * c * D * D + 2 * D * c * (c - 1))
-            f_bytes = 4 * (5 * b * t * H * D + H * D + 2 * b * H * D * D)
-            f_bms, f_by = bound(f_flops, f_bytes, PEAK_F32_FLOPS)
+            f_cost = roofline.rwkv6_scan_cost(b, t, H, D, c)
+            f_flops, f_bytes = f_cost.flops, f_cost.bytes
+            f_bms, f_by = f_cost.bound()
             line += (f"\nrwkv6_scan forward at the train chunk B={b} T={t} "
                      f"H={H} D={D} chunk {c}: kernel {f_ms:.4f} ms, with the "
                      f"states output {fs_ms:.4f} ms, plain {f_plain:.4f} ms, "
@@ -1745,9 +1727,9 @@ def check_int8(im, gen) -> dict:
             lib_ms = time_ms(lib, iters=20)
             dev, names = device_ms(kern)
             lib_dev, lib_names = device_ms(lib)
-            flops = 2 * M * K * N
-            nbytes = 2 * M * K + K * N + 4 * N + 2 * M * N
-            bms, by = bound(flops, nbytes)
+            cost = roofline.int8_matmul_cost(M, K, N)
+            flops, nbytes = cost.flops, cost.bytes
+            bms, by = cost.bound()
             designs[f"{sh}_M{M}"] = design
             timed[f"{sh}_M{M}"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -4020,6 +4002,181 @@ def rwkv_hop(cfg, params, geo) -> list[int]:
     return [512, 37, 512, 37]
 
 
+# the roofline path: llama-1.5b's three shape cells at their own sequence
+# lengths, each global batch cut to one card: (cell, rows, microbatches)
+ROOFLINE_CELLS = (("train_4k", 8, 4), ("prefill_32k", 4, 1),
+                  ("decode_32k", 16, 1))
+ROOFLINE_RUNS = 3         # timed runs a cell, after one warm-up run
+ROOFLINE_BAND = 512       # a 32768-token prefill's query rows held to plain
+
+
+def fill_context(caches, S: int, gen):
+    """Every row's dense cache holding tokens 0 .. S-2 (random K and V,
+    the slots' positions), so that a decode step at position S-1 attends
+    all S slots."""
+    for group in caches:
+        for layer in group:
+            c = layer["attn"]
+            c["k"].normal_(generator=gen)
+            c["v"].normal_(generator=gen)
+            c["abs_pos"].copy_(torch.arange(S, dtype=torch.int32,
+                                            device="cuda").expand_as(
+                                                c["abs_pos"]))
+            c["abs_pos"][..., S - 1] = -1
+
+
+def roofline_cell(cfg, params, cell, rows, micro, gen) -> dict:
+    """One cell of the roofline path: the dry run's record at the cut
+    shape (a meta-device analysis, no card), then ``steps.build(...,
+    concrete=True)`` on the card with the llama weights already there:
+    a warm-up run, ``ROOFLINE_RUNS`` timed runs (the peak of allocated
+    memory over them, less what the card held besides the step's
+    arguments), a profiled run and a run with every kernel call held to
+    its plain version (``Shadowed``: a prefill's last ``ROOFLINE_BAND``
+    query rows against every key; ``ShadowedTrain``).  Returns the
+    cell's figures."""
+    from repro_torch.configs import SHAPES, ShapeSpec
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.op_analysis import tree_bytes
+    full = SHAPES[cell]
+    shape = ShapeSpec(cell, full.seq_len, rows, full.kind)
+    L, S, kind = cfg.num_layers, shape.seq_len, shape.kind
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(cfg.name, cell, cfg=cfg, shape=shape, ops_dir=None,
+                          microbatches=micro, reckon=False)
+    meta_s = time.perf_counter() - t0
+    fn, args = steps.build(cfg, shape, concrete=True, microbatches=micro,
+                           seed=SEED)
+    args = (params, *args[1:])
+    release()
+    if kind == "decode":
+        fill_context(args[2], S, gen)
+        args[1]["positions"].fill_(S - 1)
+        G = cfg.num_heads // cfg.num_kv_heads
+        log(f"roofline {cell}: caches filled to {S - 1} tokens a row, the "
+            f"step at position {S - 1}; decode_attention's split partials "
+            f"{da._scratch_floats(rows, S, cfg.num_kv_heads, G, cfg.head_dim)}"
+            f" floats at B {rows}, Sc {S}")
+
+    def run():
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out
+
+    def check(out):
+        val = out[2] if kind == "train" else out[0]
+        want = () if kind == "train" else (rows, cfg.padded_vocab)
+        if tuple(val.shape) != want or not bool(torch.isfinite(val).all()):
+            raise AssertionError(f"roofline {cell}: output {tuple(val.shape)}"
+                                 f" (need {want}) not finite or misshapen")
+
+    out = run()
+    check(out)
+    out = None
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - tree_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(ROOFLINE_RUNS):
+        out = None
+        t = time.perf_counter()
+        out = run()
+        walls.append(time.perf_counter() - t)
+        check(out)
+    out = None
+    peak = torch.cuda.max_memory_allocated() - other
+    wall_p, busy = profiled(run, f"roofline {cell} step (B {rows}, S {S})", 1)
+    if kind == "train":
+        with ShadowedTrain() as shadow:
+            check(run())
+        need = (L * micro, 2 * L * micro, L * micro, 0)
+        got = (shadow.bwd, shadow.flash, shadow.recomputed,
+               len(shadow.pending))
+        held = (f"{shadow.flash} flash calls at {shadow.worst:.3f} x their "
+                f"limit, {shadow.recomputed} remat recomputes bit-equal, "
+                f"{shadow.bwd} backward calls at {shadow.bwd_worst:.3f} x "
+                f"theirs")
+    else:
+        with (Shadowed(rows=ROOFLINE_BAND, last=True) if kind == "prefill"
+              else Shadowed()) as shadow:
+            check(run())
+        need, got = L, shadow.calls
+        held = (f"{shadow.calls} {'flash' if kind == 'prefill' else 'decode'}"
+                f" calls at {shadow.worst:.3f} x their limit"
+                + (f" (the last {ROOFLINE_BAND} query rows against all "
+                   f"{S} keys)" if kind == "prefill" else ""))
+    if got != need:
+        raise AssertionError(f"roofline {cell}: the shadowed run saw {got}, "
+                             f"need {need}")
+    del fn, args, out
+    release()
+    med = sorted(walls)[len(walls) // 2]
+    mfu = rec["model_flops"] / PEAK_BF16_FLOPS / med
+    figures = dict(
+        cell=cell, rows=rows, of=full.global_batch, seq_len=S,
+        microbatches=micro if kind == "train" else None,
+        step_ms=med * 1e3, step_ms_runs=[w * 1e3 for w in walls],
+        profiled_ms=wall_p, busy_ms=busy, peak_bytes=peak,
+        dryrun_peak_bytes=rec["peak_memory_bytes"],
+        peak_ratio=peak / rec["peak_memory_bytes"],
+        compute_s=rec["compute_s"], memory_s=rec["memory_s"],
+        dominant=rec["dominant"], bound_s=rec["bound_s"],
+        model_flops=rec["model_flops"], model_bytes=rec["model_bytes"],
+        roofline_fraction=rec["roofline_fraction"], mfu=mfu,
+        bound_over_step=rec["bound_s"] / med,
+        fits_one_card=rec["fits_one_card"], meta_s=meta_s)
+    log(f"roofline {cell}: B {rows} of {full.global_batch}, S {S}"
+        + (f", microbatches {micro}" if kind == "train" else "")
+        + f": step median {med * 1e3:.1f} ms over {ROOFLINE_RUNS} runs "
+        f"({', '.join(f'{w * 1e3:.1f}' for w in walls)}), profiled "
+        f"{wall_p:.1f} ms wall, {busy:.1f} ms busy; peak allocated "
+        f"{peak / 1e9:.3f} GB against the dry run's "
+        f"{rec['peak_memory_bytes'] / 1e9:.3f} GB (ratio "
+        f"{figures['peak_ratio']:.3f})")
+    log(f"roofline {cell}: at this shape (meta-device analysis, H100 SXM "
+        f"sheet; {meta_s:.1f} s of host) compute {rec['compute_s'] * 1e3:.2f}"
+        f" ms, memory {rec['memory_s'] * 1e3:.2f} ms, {rec['dominant']}-"
+        f"bound; model_flops {rec['model_flops']:.4e}, model_bytes "
+        f"{rec['model_bytes']:.4e}; roofline_fraction "
+        f"{rec['roofline_fraction']:.3f}; mfu {mfu:.4f} (model FLOPs at the "
+        f"bf16 peak over the measured step); the bound over the measured "
+        f"step {figures['bound_over_step']:.3f}; fits one card "
+        f"{rec['fits_one_card']}")
+    log(f"roofline {cell}: every kernel call held to its plain version: "
+        f"{held} ({gpu_line()})")
+    return figures
+
+
+def run_roofline(cfg, params) -> tuple:
+    """The dry-run tools' steps on the card: llama-1.5b at full width and
+    depth through ``launch.steps.build(..., concrete=True)`` at its three
+    cells' own sequence lengths, each global batch cut to one card
+    (``ROOFLINE_CELLS``), beside the meta-device dry run of the same cut
+    shape (``roofline_cell``).  Launches exactly, a run: 2 x 24 x 4 flash
+    and 24 x 4 backward (train: a forward and its remat recompute a
+    microbatch), 24 flash (prefill), 24 dense decode (decode)."""
+    torch.cuda.synchronize()
+    log(f"roofline: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+        f"on the card at the start (the llama weights among it)")
+    zero_counts()
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    cells = [roofline_cell(cfg, params, *c, gen) for c in ROOFLINE_CELLS]
+    counts = read_counts()
+    L, runs = cfg.num_layers, ROOFLINE_RUNS + 3
+    micro = ROOFLINE_CELLS[0][2]
+    want = {"flash_attention": runs * (2 * L * micro + L),
+            "flash_attention_bwd": runs * L * micro,
+            "decode_attention": runs * L}
+    got = {k: n for k, n in counts.items() if n or k in want}
+    if got != want:
+        raise AssertionError(f"roofline launch counts {got}: need {want}")
+    log(f"roofline: launches {want} ({runs} runs a cell), no other kernel, "
+        f"exactly")
+    log("roofline: " + json.dumps(cells))
+    return counts, cells
+
+
 def run_rwkv(cfg, params) -> dict:
     """rwkv6-7b on ``Engine(slots=4, max_len=2048)``: four requests of
     37, 512, 1000 and 1536 prompt tokens, 32 new each, greedy and sampled
@@ -4189,30 +4346,33 @@ class Shadowed(AttentionPatch):
     A dead row must be exactly 0.  A flash call (prefill, train, an
     encoder, cross-attention) is held by the same rule; with ``rows``,
     only its first ``rows`` query rows are (whisper-base's 32768-frame
-    encoder: plain scores over all rows would take 34 GB a layer), each
-    against the plain version over every key it attends.  ``calls``,
-    ``worst`` (error over limit) and ``flash`` (the flash calls among
-    them) are kept."""
+    encoder: plain scores over all rows would take 34 GB a layer), or
+    with ``last`` its last ``rows`` (llama-1.5b's 32768-token prefill:
+    the band that attends every key tile), each against the plain version
+    over every key it attends.  ``calls``, ``worst`` (error over limit)
+    and ``flash`` (the flash calls among them) are kept."""
 
     calls, worst, flash = 0, 0.0, 0
 
-    def __init__(self, rows=None):
-        self.rows = rows
+    def __init__(self, rows=None, last=False):
+        self.rows, self.last = rows, last
 
     def call(self, name, orig, q, k, v, *args, **kw):
         from repro_torch.kernels import decode_attention as da
-        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels.ref import reference_attention
         whole = out = orig(q, k, v, *args, **kw)
         if name in FLASH_OPS:
             self.flash += 1
             causal = FLASH_OPS[name]
             r = min(q.shape[1], self.rows or q.shape[1])
-            q, out = q[:, :r], out[:, :r]
-            if causal:
+            off = q.shape[1] - r if self.last else 0
+            q, out = q[:, off:off + r], out[:, off:off + r]
+            if causal and not self.last:
                 k, v = k[:, :r], v[:, :r]
 
             def plain(q, k, v, **kw):
-                return fa.plain(q, k, v, causal=causal, **kw)
+                return reference_attention(q, k, v, causal=causal,
+                                           q_offset=off, **kw)
         elif name == "decode_attention":
             plain = da.plain
         else:
@@ -5849,6 +6009,8 @@ def main() -> int:
     drive("service", run_service, cfg, params)
     drive("autoscale", run_autoscale, cfg, params)
     drive("cli", run_cli)
+    release()
+    drive("roofline", run_roofline, cfg, params)
     del params
     torch.cuda.empty_cache()
     rcfg = get("rwkv6-7b")

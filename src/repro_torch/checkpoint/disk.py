@@ -9,7 +9,9 @@ Layout (stdlib + numpy):
 
 Key paths are ``jax.tree_util.keystr`` spellings (``core.tree.keystr``),
 e.g. ``['params']['blocks'][0][0]['attn']['wq']``; a bf16 leaf is stored
-as its uint16 bit pattern under the dtype string ``"bfloat16"``.  A save
+as its uint16 bit pattern under the dtype string ``"bfloat16"``, and a
+leaf is restored by its manifest's dtype string (a ``"uint16"`` leaf as
+``torch.uint16``; a dtype the port does not hold is refused).  A save
 is atomic (a ``.tmp`` directory renamed into place) and keeps the newest
 ``keep`` steps.  The JAX ``restore(..., shardings=)`` (restore onto
 another mesh) goes with ``sharding.py`` (ROADMAP Queue 1); the port
@@ -29,6 +31,12 @@ import torch
 from repro_torch.core.tree import (from_host, host_array, leaves_with_path,
                                    map_with_path, NP_NAMES)
 
+# the leaf dtypes a checkpoint holds: the wire's, and uint16 (a JAX tree
+# may hold one; only the manifest tells it from bf16's uint16 bits)
+NAMES = {**NP_NAMES, torch.uint16: "uint16"}
+DTYPES = {name: np.dtype(name) for name in NAMES.values()
+          if name != "bfloat16"}
+
 
 def save(directory: str, step: int, tree, *, keep: int = 3) -> str:
     """Atomic checkpoint write (tmp dir + rename)."""
@@ -39,7 +47,7 @@ def save(directory: str, step: int, tree, *, keep: int = 3) -> str:
     manifest = {"step": step, "leaves": {}}
     for i, (key, leaf) in enumerate(sorted(keyed.items())):
         arr = host_array(leaf) if torch.is_tensor(leaf) else np.asarray(leaf)
-        dtype = NP_NAMES[leaf.dtype] if torch.is_tensor(leaf) \
+        dtype = NAMES[leaf.dtype] if torch.is_tensor(leaf) \
             else str(arr.dtype)
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -73,9 +81,15 @@ def restore(directory: str, step: int, like_tree):
     def one(key, like):
         meta = manifest["leaves"][key]
         arr = np.load(os.path.join(path, meta["file"]))
+        device = getattr(like, "device", "cpu")
         if meta["dtype"] == "bfloat16":
-            arr = arr.view(np.uint16)
-        return from_host(arr, getattr(like, "device", "cpu"))
+            return from_host(arr.view(np.uint16), device)
+        if meta["dtype"] not in DTYPES:
+            raise ValueError(f"{key}: leaf dtype {meta['dtype']!r} is not "
+                             "one the port restores")
+        # by the manifest's dtype: a uint16 leaf stays uint16
+        return torch.from_numpy(np.array(arr, DTYPES[meta["dtype"]])).to(
+            device)
     return map_with_path(one, like_tree)
 
 

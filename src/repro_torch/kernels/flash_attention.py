@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, units
 from repro_torch.kernels.ref import NEG_INF, reference_attention
 
 NAME = "flash_attention"
@@ -241,13 +241,19 @@ class FlashAttention(torch.autograd.Function):
         o, lse = _launch(q, k, v, causal, window, softcap, True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap)
+        # an op analysis running now costs the backward as one unit
+        ctx.analysis = units.ANALYSIS.get()
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = backward_kernel(q, k, v, o, do.contiguous(), lse,
-                                     **ctx.kw)
+        shape = dict(B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1],
+                     H=q.shape[2], KV=k.shape[2], D=q.shape[3],
+                     causal=ctx.kw["causal"], window=ctx.kw["window"])
+        dq, dk, dv = units.run_in(ctx.analysis, BWD_NAME, shape,
+                                  backward_kernel, q, k, v, o,
+                                  do.contiguous(), lse, **ctx.kw)
         return dq, dk, dv, None, None, None
 
 

@@ -42,7 +42,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, units
 
 NAME = "rwkv6_scan"
 BWD_NAME = "rwkv6_scan_bwd"
@@ -312,13 +312,18 @@ class RWKV6Scan(torch.autograd.Function):
         out, stateT, states = _launch(r, k, v, w, u, state0, chunk, True)
         ctx.save_for_backward(r, k, v, w, u, states)
         ctx.chunk = chunk
+        # an op analysis running now costs the backward as one unit
+        ctx.analysis = units.ANALYSIS.get()
         return out, stateT
 
     @staticmethod
     def backward(ctx, dy, dS_T):
         r, k, v, w, u, states = ctx.saved_tensors
-        grads = backward_kernel(r, k, v, w, u, states, dy, dS_T,
-                                chunk=ctx.chunk)
+        B, T, H, D = r.shape
+        shape = dict(B=B, T=T, H=H, D=D, chunk=_chunk(T, ctx.chunk))
+        grads = units.run_in(ctx.analysis, BWD_NAME, shape, backward_kernel,
+                             r, k, v, w, u, states, dy, dS_T,
+                             chunk=ctx.chunk)
         return (*grads, None)
 
 

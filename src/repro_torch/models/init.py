@@ -13,7 +13,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tree import LeafSpec, from_host, host_array, leaves
+from repro_torch.core.tree import from_host, host_array, leaves
 from repro_torch.device import resolve
 from repro_torch.models.schema import ParamDef, model_schema, tree_map
 
@@ -73,11 +73,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
-    """``LeafSpec`` tree of the parameters on the ``meta`` device: shapes
-    and dtypes, no allocation (the JAX ``ShapeDtypeStruct`` tree)."""
-    meta = torch.device("meta")
-    return tree_map(lambda pd: LeafSpec(tuple(pd.shape),
-                                        torch_dtype(pd.dtype), meta),
+    """The parameter tree as ``meta`` tensors: shapes and dtypes, nothing
+    allocated (the JAX ``ShapeDtypeStruct`` tree).  A model runs on it
+    (the dry run), and so do ``optim.adamw.init_opt_state`` and a train
+    step."""
+    return tree_map(lambda pd: torch.empty(pd.shape,
+                                           dtype=torch_dtype(pd.dtype),
+                                           device="meta"),
                     model_schema(cfg))
 
 

@@ -76,9 +76,40 @@ def test_concrete_inputs_equal_jax_bit_for_bit(arch, kind):
     assert all(torch.equal(batch[k], got[k]) for k in batch)
 
 
-def test_abstract_specs_wait_for_the_dry_run_tools():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        inputs.batch_specs(get("llama-1.5b"), SHAPES["train_4k"])
+def _cells():
+    from repro_torch.configs import entry
+    return [(a, s) for a in sorted(names()) for s in entry(a).shapes]
+
+
+@pytest.mark.parametrize("arch,shape", _cells())
+def test_abstract_specs_equal_jax_leaf_for_leaf(arch, shape):
+    """``batch_specs`` / ``input_specs`` / ``cache_specs_abstract`` with
+    ``concrete=False`` give ``meta`` tensors of the shapes and dtypes of
+    JAX's ``ShapeDtypeStruct``s, leaf for leaf, at every registered
+    cell's full size, with nothing allocated."""
+    from repro_torch.core.tree import leaves_with_path
+
+    def jax_leaves(tree):
+        return [(jax.tree_util.keystr(p), tuple(a.shape), str(a.dtype))
+                for p, a in jax.tree_util.tree_leaves_with_path(tree)]
+
+    def port_leaves(tree):
+        got = leaves_with_path(tree)
+        assert all(t.device.type == "meta" for _, t in got)
+        return [(p, tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                for p, t in got]
+
+    jcfg, cfg = jget(arch), get(arch)
+    jshape, shp = JSHAPES[shape], SHAPES[shape]
+    pairs = [(jinputs.batch_specs(jcfg, jshape),
+              inputs.batch_specs(cfg, shp)),
+             (jinputs.input_specs(jcfg, jshape),
+              inputs.input_specs(cfg, shp))]
+    if shp.kind == "decode":
+        pairs.append((jinputs.cache_specs_abstract(jcfg, jshape),
+                       inputs.cache_specs_abstract(cfg, shp)))
+    for want, got in pairs:
+        assert port_leaves(got) == jax_leaves(want)
 
 
 @pytest.mark.parametrize("arch", sorted(FRONT))

@@ -286,11 +286,12 @@ def _manifest(path, step):
 
 
 def test_checkpoints_cross_the_packages_bit_for_bit(tmp_path):
-    """A JAX ``disk.save`` of {params, opt} restores in the port bit for
-    bit; the port's ``save`` of it restores with the JAX ``restore`` bit
-    for bit; both manifests hold the same keys, files, shapes and dtype
-    strings."""
-    jtree = _jax_state()
+    """A JAX ``disk.save`` of {params, opt} and a uint16 leaf restores in
+    the port bit for bit, each leaf's torch dtype the one its manifest
+    names (a uint16 leaf as uint16, not as bf16 bits); the port's
+    ``save`` of it restores with the JAX ``restore`` bit for bit; both
+    manifests hold the same keys, files, shapes and dtype strings."""
+    jtree = {**_jax_state(), "ids": jnp.arange(5, dtype=jnp.uint16) * 9000}
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
     jdisk.save(jdir, 7, jtree)
     like = params_from_numpy(to_numpy(jtree), device="cpu")
@@ -299,11 +300,15 @@ def test_checkpoints_cross_the_packages_bit_for_bit(tmp_path):
             jax.tree_util.tree_flatten_with_path(to_numpy(jtree))[0]}
     got = leaves_with_path(tree)
     assert [k for k, _ in got] == list(want)
+    names = {k: m["dtype"] for k, m in _manifest(jdir, 7)["leaves"].items()}
     for k, t in got:
         a = host_array(t)
         assert a.dtype == want[k].dtype and a.tobytes() == want[k].tobytes(), k
+        assert t.dtype == getattr(torch, names[k]), k
     assert tree["opt"]["step"].dtype == torch.int32
     assert tree["params"]["embed"].dtype == torch.bfloat16
+    assert tree["ids"].dtype == torch.uint16
+    assert tree["ids"].tolist() == [0, 9000, 18000, 27000, 36000]
 
     disk.save(tdir, 7, tree)
     assert _manifest(tdir, 7) == _manifest(jdir, 7)
