@@ -25,8 +25,10 @@ the result line):
                at jamba-v0.1-52b's G 4 / D 128 rows and internvl2-26b's
                G 6, flash in full mode at whisper-base's encoder and
                cross-attention (D 64, Sq 416 over 1536 frames), dense
-               decode over its cross cache (position 2^30), each case in
-               its kernel's row of the JSON line under "cases"; flash's
+               decode over its cross cache (position 2^30), paged decode
+               at llama-1.5b's page size 8 (fleet_serving's act five, and
+               B 4 near position 1000), each case in its kernel's row of
+               the JSON line under "cases"; flash's
                backward kernels (``flash_attention_bwd``, the port's own:
                no Pallas counterpart) at llama-1.5b's, whisper-base's
                encoder and cross, gemma3-4b's local (D 256), stablelm-12b's
@@ -112,9 +114,9 @@ the result line):
                service      the fleet's service mode: a ``ControlPlane``
                             over ``SocketTransport``, a thread per
                             ``PagedEngine`` (a, b, c; the paged geometry,
-                            one program set), twelve requests (the paged
-                            prompt lengths twice, 32 new, greedy and
-                            sampled, three sensitivities); b's service
+                            one program set), six requests (the paged
+                            prompt lengths, 32 new, greedy and sampled,
+                            three sensitivities); b's service
                             killed once it holds a shadowed slot, the
                             heartbeat detector failing it over; every
                             ticket done once, greedy ones against the same
@@ -132,6 +134,25 @@ the result line):
                cli          ``repro_torch.launch.serve`` and
                             ``repro_torch.launch.fleet --transport socket``
                             in-process at full width
+               examples     the six serving examples of
+                            ``repro_torch.examples`` through their ``run``
+                            at full width on the weights held (quickstart,
+                            resilient_failover, validated_medical_agent,
+                            speculative_serving with a one-layer draft of
+                            seed 1 and its near-tie rule, speculative_fleet,
+                            fleet_serving's five acts, act five's paged
+                            engines at page size 8), every attention call
+                            held to its plain version, each example's own
+                            checks; beside them ``train_100m --full
+                            --batch 32`` as child processes
+                            (``chip_smoke.py --train-100m``, every flash,
+                            remat and backward call held as in ``train``,
+                            the verdicts read at the end): 120 steps, and
+                            a run killed after its step-80 checkpoint line
+                            and resumed, the two step-120 checkpoints
+                            equal byte for byte, LEARNED printed; the path
+                            must launch flash, its backward (D 64), dense
+                            and paged decode and spec_accept
                each of the three with its launches equal to the engines'
                own program counts (24 x cold prefills, 24 x decode steps)
                roofline     the dry-run tools' steps
@@ -161,8 +182,8 @@ the result line):
                             second engine (seed 9) with the unmigrated
                             run's tokens
                then the six other attention-only families at full width
-               and half depth (each block group's repeats halved, rounded
-               up; bf16, seed 0; one at a time, rwkv freed):
+               and one repeat of each block group (17 layers of 242; bf16,
+               seed 0; one at a time, rwkv freed):
                families     gemma3-4b, gemma2-27b, stablelm-12b,
                             deepseek-7b, granite-moe-1b-a400m and
                             deepseek-moe-16b, each on a ``PagedEngine``
@@ -1031,21 +1052,34 @@ def _live(pos, window: int, slots: int = 1 << 62) -> list[int]:
     return [min(int(p) + 1, window or slots, slots) for p in pos]
 
 
+# paged decode cases beyond the slice's: (label, H, KV, D, window, page
+# size, table width NP, pool pages P, positions of the rows); the
+# families' rows near positions 1000-1500 over 16-slot pages, and
+# llama-1.5b at page size 8: fleet_serving's act five (two rows of a
+# max_len-64 engine, NP 8, its 16-page pool) and the paged engine's B 4
+# near position 1000 (max_len 2048)
+PAGED_CASES = (
+    ("gemma3-4b local", 8, 4, 256, 1024, 16, 128, 512,
+     (1000, 1200, 1350, 1500)),
+    ("gemma3-4b global", 8, 4, 256, 0, 16, 128, 512,
+     (1000, 1200, 1350, 1500)),
+    ("stablelm-12b", 32, 8, 160, 0, 16, 128, 512, (1000, 1200, 1350, 1500)),
+    ("llama-1.5b ps 8 act five", 16, 8, 128, 0, 8, 8, 16, (21, 25)),
+    ("llama-1.5b ps 8", 16, 8, 128, 0, 8, 256, 1024, (1000, 990, 1010, 1005)))
+
+
 def wide_paged(da, gen) -> list:
-    """paged decode at the families' wide head dims, B = 4 rows near
-    positions 1000-1500 over 16-slot pages: gemma3-4b (G 2, D 256)
-    windowed (1024) and global, stablelm-12b (G 4, D 160); each row
-    within its limit against the plain version, bit-equal on a second
-    call, and timed (pools rotated, cold in L2) beside the plain version,
-    SDPA over pre-gathered K/V and the bound."""
-    B, ps, NP, P = 4, 16, 128, 512
+    """paged decode beyond the slice's shape (``PAGED_CASES``): the
+    families' wide head dims, gemma3-4b (G 2, D 256) windowed (1024) and
+    global, stablelm-12b (G 4, D 160), and llama-1.5b at page size 8;
+    each row within its limit against the plain version, bit-equal on a
+    second call, and timed (pools rotated, cold in L2) beside the plain
+    version, SDPA over pre-gathered K/V and the bound."""
     rng = np.random.default_rng(SEED + 24)
-    pos = torch.tensor([1000, 1200, 1350, 1500], dtype=torch.int32,
-                       device="cuda")
     out = []
-    for label, H, KV, D, window in (("gemma3-4b local", 8, 4, 256, 1024),
-                                    ("gemma3-4b global", 8, 4, 256, 0),
-                                    ("stablelm-12b", 32, 8, 160, 0)):
+    for label, H, KV, D, window, ps, NP, P, at in PAGED_CASES:
+        B = len(at)
+        pos = torch.tensor(at, dtype=torch.int32, device="cuda")
         q = torch.randn((B, 1, H, D), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         pools = [tuple(_pools(P, ps, KV, D, gen)) for _ in range(4)]
@@ -1100,13 +1134,15 @@ def wide_paged(da, gen) -> list:
                                           pt.numel())
         nbytes = cost.bytes
         bms, by = cost.bound()
-        log(f"paged_decode {label} B={B} H={H} KV={KV} D={D} window "
-            f"{window} positions {pos.tolist()}: max_abs_err={err:.3e} "
+        log(f"paged_decode {label} B={B} H={H} KV={KV} D={D} ps={ps} "
+            f"NP={NP} window {window} positions {pos.tolist()}: "
+            f"max_abs_err={err:.3e} "
             f"({frac:.2f} x its row's limit), bit-equal on a second call | "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over "
             f"pre-gathered K/V {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"{nbytes / ms / 1e6:.1f} GB/s")
         out.append(dict(case=label, B=B, H=H, KV=KV, D=D, window=window,
+                        page_size=ps, NP=NP, positions=list(at),
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
     return out
@@ -3505,8 +3541,9 @@ def service_state(cp) -> str:
 def run_service(cfg, params):
     """The ``service`` path: the port's ``ControlPlane`` over
     ``SocketTransport`` with a thread per engine: three ``PagedEngine``s
-    a, b, c of the paged geometry (one program set), the twelve requests,
-    b's service killed once it holds a slot whose shadow arrived.  Then
+    a, b, c of the paged geometry (one program set), six requests (two
+    an engine), b's service killed once it holds a slot whose shadow
+    arrived.  Then
     the same requests without faults through a one-engine sync fleet and
     the three-engine socket fleet: the concurrency ratio."""
     from repro_torch.core.attestation import TrustAuthority
@@ -3516,7 +3553,11 @@ def run_service(cfg, params):
                                    FleetController, Rebalancer)
     from repro_torch.serving.paged import PagedEngine
 
-    specs = _service_traffic(cfg)
+    # the first six requests (every prompt length once, greedy and
+    # sampled, the three sensitivities): twelve until the examples path
+    # took chip_smoke past 1100 s of its 1200 on a slow host, where the
+    # fault run's shadow traffic (a 236 MB frame a shadow) took 105 s
+    specs = _service_traffic(cfg)[:6]
     progs = Programs()
 
     def fleet_of(tag, names):
@@ -4288,18 +4329,22 @@ FAMILIES = (("gemma3-4b", 1536), ("gemma2-27b", 4608),
             ("granite-moe-1b-a400m", 1536), ("deepseek-moe-16b", 1536))
 
 
-def family_config(name):
-    """(``name`` at full width with each block group's repeats halved,
-    rounded up, the full config): the depth cut of the ``families`` and
-    ``jamba`` paths, which keeps every layer kind, window and block
-    group.  It halves the host time of each step (chip_smoke's time
-    limit) and, for jamba, the weights: 103.1 GB of bf16 at full depth
-    does not fit the card's 80 GB."""
+def family_config(name, share=2):
+    """(``name`` at full width with each block group's repeats divided
+    by ``share``, rounded up, or with ``share=None`` one repeat of each
+    group; the full config): the depth cut of the ``families`` (one
+    repeat: 17 layers of the six families' 242, half depth until the
+    examples path took chip_smoke past 1100 s of its 1200 on a slow
+    host) and ``jamba`` (half) paths, which keeps every layer kind,
+    window and block group.  It cuts the host time of each step
+    (chip_smoke's time limit) and, for jamba, the weights: 103.1 GB of
+    bf16 at full depth does not fit the card's 80 GB."""
     from repro_torch.configs import get
     from repro_torch.configs.base import BlockDef
     full = get(name)
     return full.replace(blocks=tuple(
-        BlockDef(b.layers, repeats=-(-b.repeats // 2))
+        BlockDef(b.layers, repeats=1 if share is None
+                 else -(-b.repeats // share))
         for b in full.blocks)), full
 
 
@@ -4587,8 +4632,9 @@ def release():
 
 
 def run_families() -> dict:
-    """The six attention-only families at full width and half depth
-    (``family_config``), weights from seed 0 made on the card, one at a
+    """The six attention-only families at full width, one repeat of each
+    block group (``family_config``), weights from seed 0 made on the
+    card, one at a
     time: each on the paged and
     the dense engine (``family_engine``), its launches exactly
     num_layers x cold prefills (flash) and num_layers x decode forwards;
@@ -4599,7 +4645,7 @@ def run_families() -> dict:
     torch.cuda.synchronize()
     for name, long in FAMILIES:
         t0 = time.perf_counter()
-        cfg, full = family_config(name)
+        cfg, full = family_config(name, share=None)
         params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
                              device="cuda")
         torch.cuda.synchronize()
@@ -5296,6 +5342,349 @@ class ShadowedTrain(Shadowed):
         self.fa.backward_kernel = self.bwd_kernel
 
 
+EXAMPLE_RUNS = ("quickstart", "resilient_failover", "validated_medical_agent",
+                "speculative_serving", "speculative_fleet", "fleet_serving")
+# train_100m --full: the example's 120 steps (a checkpoint every 40), the
+# kill after the step-80 one; 32 rows a batch, where 8 (the example's
+# default) leaves the random init short of LEARNED in 120 steps (9.398 ->
+# 8.982 on an H100 80GB HBM3, 32 rows: 9.410 -> 7.831)
+TRAIN_100M_STEPS, TRAIN_100M_KILL, TRAIN_100M_BATCH = 120, 80, 32
+
+
+def _figures(got):
+    """An example's returned figures without its token lists and trees,
+    floats to 4 significant digits, for its ``examples:`` line."""
+    skip = {"outputs", "out", "ref", "tokens", "before", "params", "opt",
+            "losses", "batch", "chat"}
+    if isinstance(got, dict):
+        return {k: _figures(v) for k, v in got.items() if k not in skip}
+    if isinstance(got, float):
+        return float(f"{got:.4g}")
+    if isinstance(got, (list, tuple)):
+        return [_figures(v) for v in got]
+    return got
+
+
+class DeferredShadowTrain(ShadowedTrain):
+    """``ShadowedTrain``'s checks with their verdicts kept on the card and
+    read once, by ``verdict()``, so that they add no host sync to a step:
+    every flash call against its plain version by ``Shadowed``'s element
+    rule, each remat recompute against its first pass bit for bit, every
+    backward call against ``plain_backward`` by ``bwd_err``'s element
+    rule (the bf16 part plus ``DOT_ULPS`` of the dot products), every
+    output finite.  A step's first ``layers`` flash calls are its first
+    passes and its next ``layers`` their recomputes, last layer first
+    (remat's backward walks the layers from the last), so each recompute
+    is compared with the latest pending first pass: a wrong pairing
+    shows as a mismatch, never as a pass."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = layers
+        self._worst = self._bwd_worst = self._mismatch = None
+
+    @staticmethod
+    def _fold(acc, x):
+        return x if acc is None else torch.maximum(acc, x)
+
+    @staticmethod
+    def _finite(out, frac):
+        return torch.where(torch.isfinite(out).all(), frac,
+                           torch.full_like(frac, float("inf")))
+
+    def call(self, name, orig, q, k, v, *args, **kw):
+        from repro_torch.kernels.ref import reference_attention
+        out = orig(q, k, v, *args, **kw)
+        if name not in FLASH_OPS:
+            raise AssertionError(f"{name} called in a train step")
+        with torch.no_grad():
+            causal = FLASH_OPS[name]
+            ref = reference_attention(q, k, v, causal=causal, **kw).float()
+            terms = reference_attention(q, k, v.abs(), causal=causal,
+                                        **kw).float()
+            frac = ((out.float() - ref).abs()
+                    / (4 * 2.0 ** -7 * terms).clamp(min=1e-30)).amax()
+            self._worst = self._fold(self._worst, self._finite(out, frac))
+            if self.flash % (2 * self.layers) < self.layers:
+                self.pending.append(tuple(t.detach().clone()
+                                          for t in (q, k, v, out)))
+            else:
+                first = self.pending.pop()
+                diff = torch.stack([(a != b).any() for a, b in
+                                    zip(first, (q, k, v, out))]).any()
+                self._mismatch = self._fold(self._mismatch, diff)
+                self.recomputed += 1
+        self.flash += 1
+        self.calls += 1
+        return out
+
+    def backward(self, q, k, v, o, do, lse, **kw):
+        grads = self.bwd_kernel(q, k, v, o, do, lse, **kw)
+        with torch.no_grad():
+            *ref, terms, dots = self.fa.plain_backward(
+                q, k, v, o, do, terms=True, **kw)
+            for g, r, t, d in zip(grads, ref, terms, dots):
+                lim = BWD_ULPS * t + DOT_ULPS * d
+                frac = ((g.float() - r.float()).abs()
+                        / lim.clamp(min=1e-30)).amax()
+                self._bwd_worst = self._fold(self._bwd_worst,
+                                             self._finite(g, frac))
+        self.bwd += 1
+        return grads
+
+    def verdict(self) -> dict:
+        """The checks' figures, read once; raises on any failure."""
+        self.worst = float(self._worst) if self.calls else 0.0
+        self.bwd_worst = float(self._bwd_worst) if self.bwd else 0.0
+        mismatch = bool(self._mismatch) if self.recomputed else False
+        if self.worst > 1.0 or self.bwd_worst > 1.0 or mismatch \
+                or self.pending:
+            raise AssertionError(
+                f"train_100m: flash at {self.worst:.3f} x its limit, "
+                f"backward at {self.bwd_worst:.3f} x, a recompute differs "
+                f"from its first pass: {mismatch}, {len(self.pending)} "
+                "first passes never recomputed")
+        return dict(calls=self.calls, flash=self.flash, worst=self.worst,
+                    bwd=self.bwd, bwd_worst=self.bwd_worst,
+                    recomputed=self.recomputed, pending=len(self.pending))
+
+
+def train_100m_child(argv) -> int:
+    """``python3 chip_smoke.py --train-100m ARGS``: one run of
+    ``repro_torch.examples.train_100m`` on the card with every flash
+    call, remat recompute and backward call held
+    (``DeferredShadowTrain``); its last line is the launch counts and the
+    checks' figures as JSON."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: the train_100m child needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    from repro_torch.examples import train_100m
+    from repro_torch.kernels import build
+    build.build_all(("flash_attention", "flash_attention_bwd"))
+    zero_counts()
+    with DeferredShadowTrain(train_100m.CFG_100M.num_layers) as sh:
+        code = train_100m.main(argv)
+    torch.cuda.synchronize()
+    print("train_100m child: " + json.dumps(dict(
+        counts=read_counts(), **sh.verdict())), flush=True)
+    return code
+
+
+class Child:
+    """One ``train_100m --full`` child process, its output pumped by a
+    thread: its lines, and, once it has ended, the JSON of its last line
+    (None when it was killed).  With ``kill_at`` it is killed (SIGKILL)
+    as soon as it prints that line, and ``then()`` runs on the pump's
+    thread after it is dead."""
+
+    def __init__(self, argv, *, kill_at=None, then=None, timeout_s=600):
+        import threading
+        self.argv, self.kill_at, self.then = argv, kill_at, then
+        self.lines, self.killed, self.wall = [], False, None
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--train-100m",
+             "--full", *argv], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            cwd=str(Path(__file__).resolve().parent))
+        self.watchdog = threading.Timer(timeout_s, self.proc.kill)
+        self.watchdog.start()
+        self.thread = threading.Thread(target=self._pump, daemon=True)
+        self.thread.start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            if self.kill_at is not None and self.kill_at in line:
+                self.proc.kill()
+                self.killed = True
+                break
+        self.proc.wait()
+        self.wall = time.perf_counter() - self.t0
+        if self.killed and self.then is not None:
+            self.then()
+
+    def result(self) -> tuple:
+        self.thread.join()
+        self.watchdog.cancel()
+        self.proc.stdout.close()
+        lines = self.lines
+        if self.killed:
+            return lines, None, self.wall
+        if self.proc.returncode != 0 or not lines or \
+                not lines[-1].startswith("train_100m child"):
+            raise AssertionError(f"train_100m {' '.join(self.argv)}: exit "
+                                 f"{self.proc.returncode}, last lines "
+                                 f"{lines[-8:]}")
+        return lines, json.loads(lines[-1].split(": ", 1)[1]), self.wall
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.watchdog.cancel()
+
+
+def check_train_100m_child(label, stats, steps):
+    """The child's launches: exactly one flash call a layer and pass (24
+    layers) and as many remat recomputes, one backward call a layer and
+    pass, no other kernel."""
+    from repro_torch.examples.train_100m import CFG_100M
+    layers = CFG_100M.num_layers
+    want = {"flash_attention": 2 * layers * steps,
+            "flash_attention_bwd": layers * steps}
+    got = {k: n for k, n in stats["counts"].items() if n or k in want}
+    if got != want or stats["recomputed"] != layers * steps:
+        raise AssertionError(f"train_100m {label}: launches {got} (need "
+                             f"{want}), checks {stats}")
+    return got
+
+
+class Train100m:
+    """``train_100m --full`` (CFG_100M: 24 layers, d_model 640, head_dim
+    64; ``--batch 32``) on the card as child processes, started together
+    and run beside the serving examples (the card idles under each: their
+    steps are host-bound): one for 120 steps uninterrupted, one killed
+    (SIGKILL) after its step-80 checkpoint line, restarted with
+    ``--resume`` as soon as it is dead.  ``finish()`` waits for them: the
+    two step-120 checkpoints must be equal file for file, byte for byte,
+    and the uninterrupted run must print LEARNED; it returns the launches
+    of the two runs that finished."""
+
+    def __init__(self):
+        import shutil
+        self.base = (Path(__file__).resolve().parent / "build"
+                     / "examples_train_100m")
+        shutil.rmtree(self.base, ignore_errors=True)
+        self.flags = ["--steps", str(TRAIN_100M_STEPS), "--batch",
+                      str(TRAIN_100M_BATCH)]
+        self.mark = f"checkpointed at {TRAIN_100M_KILL} "
+        self.resumed = None
+        self.whole = Child([*self.flags, "--ckpt-dir",
+                            str(self.base / "whole")])
+        self.cut = Child([*self.flags, "--ckpt-dir",
+                          str(self.base / "resumed")],
+                         kill_at=self.mark, then=self._resume)
+
+    def _resume(self):
+        self.resumed = Child([*self.flags, "--ckpt-dir",
+                              str(self.base / "resumed"), "--resume"])
+
+    def finish(self) -> dict:
+        whole, stats, wall = self.whole.result()
+        counts = check_train_100m_child("uninterrupted", stats,
+                                        TRAIN_100M_STEPS)
+        loss = [ln for ln in whole if ln.startswith("loss:")][-1]
+        log(f"examples: train_100m --full uninterrupted: {whole[0]}; "
+            f"{loss}; {wall:.1f} s wall (a process, {TRAIN_100M_STEPS} "
+            f"steps of {TRAIN_100M_BATCH} x 128 tokens); every flash call "
+            f"at {stats['worst']:.3f} x its limit, {stats['recomputed']} "
+            f"remat recomputes bit-equal, {stats['bwd']} backward calls at "
+            f"{stats['bwd_worst']:.3f} x ({gpu_line()})")
+        cut, _, wall_k = self.cut.result()
+        if not self.cut.killed or self.resumed is None:
+            raise AssertionError(f"train_100m: the run to kill ended "
+                                 f"before step {TRAIN_100M_KILL}: {cut[-6:]}")
+        again, stats2, wall_r = self.resumed.result()
+        if f"resumed at step {TRAIN_100M_KILL}" not in again:
+            raise AssertionError(f"train_100m --resume: {again[:4]}")
+        more = check_train_100m_child(
+            "resumed", stats2, TRAIN_100M_STEPS - TRAIN_100M_KILL)
+        step = f"step_{TRAIN_100M_STEPS:08d}"
+        a, b = self.base / "whole" / step, self.base / "resumed" / step
+        files = sorted(p.name for p in a.iterdir())
+        if files != sorted(p.name for p in b.iterdir()) or any(
+                (a / f).read_bytes() != (b / f).read_bytes() for f in files):
+            raise AssertionError("train_100m: the resumed run's step-120 "
+                                 "checkpoint differs from the uninterrupted "
+                                 "run's")
+        size = sum((a / f).stat().st_size for f in files)
+        log(f"examples: train_100m --full killed after its step-"
+            f"{TRAIN_100M_KILL} checkpoint line ({wall_k:.1f} s), "
+            f"restarted with --resume ({wall_r:.1f} s, {again[-2]}; its "
+            f"calls at {stats2['worst']:.3f} / {stats2['bwd_worst']:.3f} x "
+            f"their limits): the step-{TRAIN_100M_STEPS} checkpoints "
+            f"({len(files)} files, {size} bytes) equal byte for byte")
+        if "LEARNED" not in loss:
+            raise AssertionError(f"train_100m: {loss}")
+        return {k: counts.get(k, 0) + more.get(k, 0)
+                for k in set(counts) | set(more)}
+
+    def stop(self):
+        import shutil
+        for child in (self.whole, self.cut, self.resumed):
+            if child is not None:
+                child.stop()
+        shutil.rmtree(self.base, ignore_errors=True)
+
+
+def run_examples(cfg, params) -> dict:
+    """The ``examples`` path: the six serving examples of
+    ``repro_torch.examples`` at full width on the card, each through its
+    ``run`` on the llama-1.5b weights already held (speculative_serving's
+    draft: the same width at one layer, seed 1), every attention call
+    held to its plain version (``Shadowed``), their printed lines and
+    figures logged; beside them, ``train_100m --full`` with its restart
+    (``Train100m``: child processes).  The path must launch flash, its
+    backward, dense and paged decode and spec_accept."""
+    zero_counts()
+    train = Train100m()
+    try:
+        with Shadowed() as sh:
+            for name in EXAMPLE_RUNS:
+                serve_example(name, cfg, params)
+        counts = read_counts()
+        log(f"examples: {sh.calls} attention calls ({sh.flash} flash) held "
+            f"to their plain versions, worst element at {sh.worst:.3f} x "
+            f"its limit")
+        for k, n in train.finish().items():
+            counts[k] += n
+    finally:
+        train.stop()
+    need = ("flash_attention", "flash_attention_bwd", "decode_attention",
+            "paged_decode_attention", "spec_accept")
+    if any(counts[k] < 1 for k in need):
+        raise AssertionError(f"examples: launches {counts}: each of {need} "
+                             "must launch")
+    return counts
+
+
+def serve_example(name, cfg, params):
+    """One serving example's ``run`` on the card: its printed lines, then
+    its figures, launches and wall."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.models.init import init_params
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    before = read_counts()
+    args, kw = (cfg, params), {}
+    if name == "speculative_serving":
+        dcfg = mod.draft_config(cfg)
+        args += (dcfg, init_params(
+            dcfg, torch.Generator("cuda").manual_seed(SEED + 1),
+            device="cuda"))
+        kw["exact"] = False
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got = mod.run(*args, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for ln in buf.getvalue().splitlines():
+        if ln.strip():
+            log(f"examples: {name}: {ln}")
+    ran = {k: n - before[k] for k, n in read_counts().items()
+           if n != before[k]}
+    log(f"examples: {name}: {json.dumps(_figures(got), default=str)}; "
+        f"launches {ran}; {wall:.1f} s wall ({gpu_line()})")
+    del args, got
+    release()
+
+
 def refuse_mesh(tc):
     """A train step given a mesh refused with ``NotImplementedError``
     before anything moves: no launch, no allocation (one card has no
@@ -5917,6 +6306,8 @@ def run_train_jamba() -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--train-100m"]:
+        return train_100m_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -6009,6 +6400,8 @@ def main() -> int:
     drive("service", run_service, cfg, params)
     drive("autoscale", run_autoscale, cfg, params)
     drive("cli", run_cli)
+    release()
+    drive("examples", run_examples, cfg, params)
     release()
     drive("roofline", run_roofline, cfg, params)
     del params

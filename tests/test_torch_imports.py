@@ -70,7 +70,15 @@ missing = sorted({{"repro_torch.core.speculation", "repro_torch.core.validation"
                   "repro_torch.training.train", "repro_torch.optim.adamw",
                   "repro_torch.data", "repro_torch.data.pipeline",
                   "repro_torch.checkpoint",
-                  "repro_torch.checkpoint.disk"}} - set(names))
+                  "repro_torch.checkpoint.disk",
+                  "repro_torch.examples",
+                  "repro_torch.examples.quickstart",
+                  "repro_torch.examples.resilient_failover",
+                  "repro_torch.examples.speculative_serving",
+                  "repro_torch.examples.speculative_fleet",
+                  "repro_torch.examples.validated_medical_agent",
+                  "repro_torch.examples.fleet_serving",
+                  "repro_torch.examples.train_100m"}} - set(names))
 assert not missing, missing
 print(len(names), bad)
 """

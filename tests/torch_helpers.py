@@ -253,3 +253,70 @@ def greedy_agreement(jouts: dict, touts: dict, prompts: dict, jcfg,
                 break
             matched += 1
     return matched / max(total, 1), gaps
+
+
+# ---------------------------------------------------------------------------
+# the examples: the JAX example and the port's scenario, printed lines
+# ---------------------------------------------------------------------------
+
+def jax_example(name: str):
+    """The JAX package's ``examples/<name>.py``, loaded from its file as
+    it stands (it is not a package)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"jax_example_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def captured(fn, *args, **kw) -> tuple:
+    """``fn(*args, **kw)``'s result and the lines it printed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue().splitlines()
+
+
+def jax_profiles() -> dict:
+    """The JAX package's device profiles as the port's ``DeviceProfile``
+    (the port's own ``CLOUD`` is the H100's): ``mcu``, ``edge``,
+    ``cloud``."""
+    import dataclasses
+
+    from repro.core import daemon as jdaemon
+    from repro_torch.core.daemon import DeviceProfile
+    return {n.lower(): DeviceProfile(**dataclasses.asdict(
+        getattr(jdaemon, n))) for n in ("MCU", "EDGE", "CLOUD")}
+
+
+def masked(lines, masks) -> list:
+    """``lines`` with every mask's pattern replaced.  A mask is
+    ``(pattern, replacement, reason)``; the replacement may be a
+    function of the match (a canonical form, as for a dict whose order
+    is a set's)."""
+    import re
+    out = []
+    for line in lines:
+        for pattern, repl, _ in masks:
+            line = re.sub(pattern, repl, line)
+        out.append(line)
+    return out
+
+
+def assert_same_lines(jax_lines, port_lines, masks):
+    """The port's printed lines equal the JAX example's, line for line,
+    after ``masks``; each mask must match in the JAX output (a mask that
+    covers nothing is a mistake in the test)."""
+    import re
+    for pattern, _, reason in masks:
+        assert any(re.search(pattern, ln) for ln in jax_lines), \
+            f"mask {pattern!r} ({reason}) matches no JAX line"
+    j, t = masked(jax_lines, masks), masked(port_lines, masks)
+    assert len(j) == len(t), (j, t)
+    for a, b in zip(j, t):
+        assert a == b, f"\nJAX : {a}\nport: {b}"
