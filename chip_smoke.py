@@ -181,6 +181,28 @@ the result line):
                             one slot moved after 8 decode steps into a
                             second engine (seed 9) with the unmigrated
                             run's tokens
+               spec_recurrent a ``SpeculativeTierController`` pair (sync
+                            mode, gamma 4) of ``Engine(slots=4)``s on the
+                            weights held, in stepwise and in distribution
+                            mode: rwkv6-7b here, four greedy requests (37,
+                            512, 1000, 1536 prompt tokens, 32 new), jamba
+                            two (512, 1024) inside the jamba path; the
+                            draft proposes its greedy token but at a
+                            seeded index of each round (token + 1 mod V);
+                            each stream equal to the requests' pure run on
+                            the verify geometry (``step`` /
+                            ``step_probs``), each round's n_acc the
+                            perturbed index, every n_acc 0-4 and a fully
+                            accepted window seen, one request parked
+                            mid-round in stepwise, every rollback's
+                            restored recurrent leaves equal bit for bit to
+                            those recorded while drafting and to the pure
+                            run's; the history's bytes, its copies' device
+                            ms and a profiled window; launches exactly:
+                            rwkv6_scan 32 a chunk run of every rwkv
+                            prefill, flash and dense decode 2 a jamba cold
+                            prefill / decode forward, spec_accept once a
+                            slot a distribution round
                then the six other attention-only families at full width
                and one repeat of each block group (17 layers of 242; bf16,
                seed 0; one at a time, rwkv freed):
@@ -208,13 +230,15 @@ the result line):
                             routes replayed); a fifth request in a
                             retired slot from all-zero mamba state, equal
                             to a fresh engine's, idle slots' ssm and conv
-                            untouched; a 100-token prompt refused before
-                            anything moved; profiles of a decode step and
+                            untouched; a 100-token prompt and the wide
+                            verify mode refused before anything moved;
+                            profiles of a decode step and
                             of a 1536-token prefill split into the mamba
                             mixers and the rest; a sampled 1024-token
                             slot's v1 hop into an engine of seed 9, bit
                             for bit; launches exactly 2 x cold prefills
-                            (flash) and 2 x decode forwards
+                            (flash) and 2 x decode forwards; then
+                            spec_recurrent's jamba half
                then the two models no engine serves, at full width and
                depth through ``models.forward`` (train, prefill, decode),
                fed by ``configs.inputs.batch_specs`` (bf16, seed 0; every
@@ -4319,6 +4343,343 @@ def run_rwkv(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the spec_recurrent path: speculation and rollback on rwkv6-7b and jamba
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA = 4
+SPEC_CHECKED = 12     # output indices whose states the rollbacks are held to
+
+
+def spec_engines(cfg, params, geo, counts, pure):
+    """A draft and a verify ``Engine`` of ``geo`` on one parameter tree,
+    each counting its decode forwards into ``counts``.  The draft
+    proposes, for each speculative request, its greedy token except at a
+    seeded index of each round (``plan``; gamma means none), where it
+    proposes token + 1 mod V (its q row one-hot at it); it records each
+    speculative slot's recurrent leaves before every draft step of the
+    first ``SPEC_CHECKED`` outputs.  Both engines hold every rollback's
+    restored leaves to those records and to the pure run's (``pure``, by
+    rid and position), bit for bit.  Returns (draft, verify)."""
+    from repro_torch.serving.engine import Engine
+
+    class Checked(Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.recorded, self.checks, self.history_ms = {}, 0, []
+            self.max_history = 0
+            for key in ("_decode_fn", "_decode_probs"):
+                fn = getattr(self, key)
+                setattr(self, key, self._counted(fn))
+
+        @staticmethod
+        def _counted(fn):
+            def run(*a, **kw):
+                counts["forwards"] += 1
+                return fn(*a, **kw)
+            return run
+
+        def _timed(self, fn, *a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            self.history_ms.append(ev)
+            self.max_history = max(self.max_history, self.history_bytes())
+            return out
+
+        def _record_history(self, positions):
+            return self._timed(super()._record_history, positions)
+
+        def _restore_recurrent(self, slot, pos, new_pos):
+            return self._timed(super()._restore_recurrent, slot, pos, new_pos)
+
+        def rollback_slot(self, slot, drafted, accepted, commit_token=None):
+            rid = self.requests[slot].rid
+            super().rollback_slot(slot, drafted, accepted, commit_token)
+            pos = int(self.state.positions[slot])
+            now = _state_leaves(self, slot)
+            for label, book in (("drafting", self.recorded),
+                                ("the pure run", pure)):
+                want = book.get((rid, pos))
+                if want is None:
+                    continue
+                if not all(torch.equal(a, b) for a, b in zip(now, want)):
+                    raise AssertionError(
+                        f"{rid}: recurrent leaves after rollback_slot({slot}, "
+                        f"{drafted}, {accepted}, {commit_token}) at position "
+                        f"{pos} differ from those of {label}")
+                self.checks += 1
+            for key in [k for k in self.recorded if k[0] == rid
+                        and k[1] < pos]:
+                del self.recorded[key]
+
+        def history_device_ms(self) -> float:
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b in self.history_ms)
+
+    class Draft(Checked):
+        ctl = None
+
+        def __init__(self, *a, plan_seed, **kw):
+            super().__init__(*a, **kw)
+            self.plan_rng = np.random.default_rng(plan_seed)
+            self.plan, self.rounds = {}, {}
+
+        def _record(self):
+            pos = self.state.positions.tolist()
+            for st in self.ctl._spec.values():
+                if len(st.req.output) < SPEC_CHECKED:
+                    self.recorded[st.req.rid, pos[st.req.slot]] = \
+                        _state_leaves(self, st.req.slot)
+
+        def _perturb(self, out, probs=None):
+            for rid, st in self.ctl._spec.items():
+                req = st.req
+                if rid not in out:
+                    continue
+                k = len(req.output) - 1 - st.committed
+                if k == 0:                      # a round's first draft
+                    if rid not in self.plan:
+                        self.plan[rid] = self.plan_rng.permutation(
+                            SPEC_GAMMA + 1).tolist()
+                    rounds = self.rounds.setdefault(rid, [])
+                    target = min(SPEC_GAMMA, req.max_new_tokens - st.committed)
+                    rounds.append((self.plan[rid][len(rounds)
+                                                  % (SPEC_GAMMA + 1)], target))
+                if k == self.rounds[rid][-1][0]:
+                    t = (req.output[-1] + 1) % self.cfg.vocab_size
+                    req.output[-1] = out[rid] = t
+                    self._force_slot_token(req.slot, t)
+                    if probs is not None:
+                        probs[req.slot] = 0.0
+                        probs[req.slot, t] = 1.0
+            return out
+
+        def step(self, **kw):
+            self._record()
+            return self._perturb(super().step(**kw))
+
+        def step_probs(self, **kw):
+            self._record()
+            out, probs = super().step_probs(**kw)
+            return self._perturb(out, probs), probs
+
+    class Verify(Checked):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.verdicts, self.scored = {}, 0
+
+        def _note(self, res):
+            for slot, v in res.items():
+                self.verdicts.setdefault(self.requests[slot].rid, []).append(
+                    v)
+            return res
+
+        def verify_slots_stepwise(self, drafts):
+            return self._note(super().verify_slots_stepwise(drafts))
+
+        def verify_slots_distribution(self, drafts, draft_probs, *, rng):
+            self.scored += len(drafts)
+            return self._note(super().verify_slots_distribution(
+                drafts, draft_probs, rng=rng))
+
+    draft = Draft(cfg, params, seed=SEED + 1, plan_seed=SEED + 60, **geo)
+    verify = Verify(cfg, params, seed=SEED + 2, **geo)
+    return draft, verify
+
+
+def _state_leaves(eng, slot) -> list:
+    """Copies of ``slot``'s recurrent leaves, layer by layer."""
+    return [a[:, slot].clone() for grp in eng.state.caches for layer in grp
+            for kind in ("rwkv", "mamba")
+            for a in layer.get(kind, {}).values()]
+
+
+def spec_pure(cfg, params, geo, reqs, mode, counts):
+    """The requests side by side on a fresh engine of the verify tier's
+    geometry (``step`` for stepwise, ``step_probs`` for distribution):
+    the committed streams the pair must give, and the recurrent leaves at
+    each position of the first ``SPEC_CHECKED`` outputs, by rid."""
+    from repro_torch.serving.engine import Engine, Request
+    eng = Engine(cfg, params, seed=SEED, **geo)
+    mine = [Request(r.rid, r.prompt, max_new_tokens=r.max_new_tokens)
+            for r in reqs]
+    for r in mine:
+        if not eng.add_request(r):
+            raise AssertionError(f"{r.rid} refused with a slot free")
+    counts["prefills"] += len(mine)
+    leaves = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    while eng.requests:
+        pos = eng.state.positions.tolist()
+        for r in eng.requests.values():
+            if len(r.output) <= SPEC_CHECKED:
+                leaves[r.rid, pos[r.slot]] = _state_leaves(eng, r.slot)
+        counts["forwards"] += 1
+        eng.step_probs() if mode == "distribution" else eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    _check_outputs(cfg, mine)
+    return {r.rid: list(r.output) for r in mine}, leaves, wall
+
+
+def _round_due(ctl) -> bool:
+    """True when the pair's next step ends in a verify round."""
+    return any(0 < min(SPEC_GAMMA, st.req.max_new_tokens - st.committed)
+               <= len(st.req.output) - st.committed + 1
+               for st in ctl._spec.values())
+
+
+def spec_pair(label, cfg, params, geo, lens, mode, rng_seed, *,
+              profile_round=False) -> dict:
+    """One ``SpeculativeTierController`` pair (sync mode, gamma 4) over
+    ``spec_engines``' draft and verify in ``mode``: greedy requests of
+    ``lens`` prompt tokens, 32 new each.  Each committed stream must
+    equal the pure run's (``spec_pure``), each round's n_acc the index
+    the draft perturbed (or the whole tail), every n_acc from 0 to gamma
+    must occur, and every rollback must restore the recorded leaves.
+    ``profile_round``: one pair step that ends in a verify round (the
+    third or later) runs under the profiler.  Returns the run's counts
+    and figures."""
+    from repro_torch.core.channel import Fabric
+    from repro_torch.core.daemon import CLOUD, EDGE
+    from repro_torch.fleet import EngineHandle, SpeculativeTierController
+    from repro_torch.serving.engine import Request
+    counts = {"prefills": 0, "forwards": 0}
+    rng = np.random.default_rng(rng_seed)
+    reqs = [Request(f"x{i}", rng.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=32) for i, n in enumerate(lens)]
+    want, pure_leaves, pure_wall = spec_pure(cfg, params, geo, reqs, mode,
+                                             counts)
+    draft, verify = spec_engines(cfg, params, geo, counts, pure_leaves)
+    ctl = SpeculativeTierController(
+        EngineHandle("edge", draft, EDGE), EngineHandle("cloud", verify,
+                                                        CLOUD),
+        fabric=Fabric(), whitelist=set(), measurement="chip_smoke",
+        gamma=SPEC_GAMMA, verify_mode=mode, compression_level=0)
+    draft.ctl = ctl
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for r in reqs:
+        if not draft.add_request(r) or ctl.attach(r) != "spec":
+            raise AssertionError(f"{label}: {r.rid} did not speculate")
+    counts["prefills"] += len(reqs) * (2 if mode == "distribution" else 1)
+    profile, parked = None, None
+    while draft.requests:
+        st = ctl._spec.get(reqs[0].rid)
+        if (mode == "stepwise" and parked is None and st is not None
+                and len(draft.rounds.get(st.req.rid, ())) >= 3
+                and len(st.req.output) > st.committed):
+            # the preemptor's rollback: the uncommitted tail dropped, the
+            # request decoding on plainly in the draft engine
+            parked = len(st.req.output) - st.committed
+            if not ctl.release_for_park(st.req.rid):
+                raise AssertionError(f"{label}: {st.req.rid} not parked")
+        if (profile_round and profile is None and ctl.stats.rounds >= 2
+                and _round_due(ctl)):
+            # one profiled pair step ending in a verify round, its
+            # history copies timed by CUDA events
+            n0 = len(draft.history_ms), len(verify.history_ms)
+            wall, busy = profiled(ctl.step, f"{label} round", 1)
+            ms = sum(a.elapsed_time(b) for a, b in
+                     draft.history_ms[n0[0]:] + verify.history_ms[n0[1]:])
+            profile = (wall, busy, ms)
+        else:
+            ctl.step()
+    torch.cuda.synchronize()
+    pair_wall = time.perf_counter() - t
+    got = {r.rid: list(r.output) for r in reqs}
+    if got != want:
+        raise AssertionError(f"{label}: committed streams {got} != the pure "
+                             f"run's {want}")
+    seen, full, short = set(), 0, 0
+    for r in reqs:
+        plan = [min(j, target) for j, target in draft.rounds[r.rid]]
+        if parked is not None and r is reqs[0]:
+            plan.pop()                  # the round the park dropped
+        acc = [n for n, _ in verify.verdicts[r.rid]]
+        full += sum(n == t for n, (_, t) in zip(acc, draft.rounds[r.rid]))
+        short += draft.rounds[r.rid][-1][1] < SPEC_GAMMA
+        if acc != plan:
+            raise AssertionError(f"{label}: {r.rid} accepted {acc} per round "
+                                 f"where the draft perturbed at {plan}")
+        seen |= set(acc)
+    if seen != set(range(SPEC_GAMMA + 1)) or not full:
+        raise AssertionError(f"{label}: n_acc values {sorted(seen)}, {full} "
+                             f"fully accepted windows; need 0..{SPEC_GAMMA} "
+                             "and one at least")
+    st = ctl.stats
+    if draft.checks == 0 or (mode == "distribution" and verify.checks == 0):
+        raise AssertionError(f"{label}: no rollback was held to a record")
+    if draft.history_bytes() or verify.history_bytes():
+        raise AssertionError(f"{label}: a history outlived its requests")
+    tokens = sum(len(o) for o in got.values())
+    per_slot = sum(a.nbytes for a in _state_leaves(draft, 0))
+    copy_ms = draft.history_device_ms() + verify.history_device_ms()
+    copies = len(draft.history_ms) + len(verify.history_ms)
+    log(f"{label}: {len(reqs)} greedy requests x 32 tokens (prompts "
+        f"{list(lens)}) equal the pure run's streams token for token; "
+        f"{st.rounds} rounds (gamma {SPEC_GAMMA}), acceptance "
+        f"{st.accepted}/{st.proposed} = {st.acceptance_rate:.4f}, "
+        f"{st.corrections} corrections, n_acc per round = the draft's "
+        f"perturbed index, every n_acc 0..{SPEC_GAMMA} seen, {full} fully "
+        f"accepted windows, {short} short last rounds"
+        + (f", {reqs[0].rid} parked mid-round ({parked} drafted tokens "
+           "dropped, then decoded plainly on the draft engine)"
+           if parked else "")
+        + f"; {draft.checks} draft and {verify.checks} verify rollbacks held "
+        "to the recorded leaves bit for bit")
+    log(f"{label}: wall per committed token {pair_wall / tokens * 1e3:.3f} "
+        f"ms against the pure run's {pure_wall / tokens * 1e3:.3f} ms "
+        f"({pair_wall / pure_wall:.2f}x; host clock, synchronised); history "
+        f"{per_slot} bytes a slot-position ({per_slot / 2**20:.2f} MiB), at "
+        f"most {draft.max_history} bytes on the draft (gamma {SPEC_GAMMA} x "
+        f"{len(reqs)} slots) and {verify.max_history} on the verify engine "
+        f"(its bursts); history copies {copy_ms:.3f} device ms over the "
+        f"run ({copies} calls, CUDA events)"
+        + (f", {profile[2]:.3f} ms of the profiled round's {profile[0]:.3f} "
+           f"ms wall / {profile[1]:.3f} ms busy" if profile else "")
+        + f" ({gpu_line()})")
+    return {"prefills": counts["prefills"], "forwards": counts["forwards"],
+            "scored": verify.scored, "wall": pair_wall}
+
+
+def run_spec_recurrent(cfg, params, lens, geo) -> dict:
+    """The spec_recurrent path on one model: ``spec_pair`` in stepwise
+    and in distribution mode on ``Engine(slots=4)`` pairs sharing the
+    weights held.  Launches exactly, per attention layer, one flash a
+    cold prefill and one dense decode a decode forward; rwkv6_scan 32 a
+    chunk run of every rwkv prefill; spec_accept once a slot a
+    distribution round."""
+    zero_counts()
+    label = f"spec_recurrent {cfg.name}"
+    runs = [spec_pair(f"{label} {mode}", cfg, params, geo, lens, mode,
+                      SEED + 61 + i, profile_round=mode == "distribution")
+            for i, mode in enumerate(("stepwise", "distribution"))]
+    counts = read_counts()
+    kinds = [ls.mixer for ls in cfg.layer_specs()]
+    n_attn, n_rwkv = kinds.count("attn"), kinds.count("rwkv")
+    prefills = sum(r["prefills"] for r in runs)
+    forwards = sum(r["forwards"] for r in runs)
+    want = {"flash_attention": n_attn * prefills,
+            "decode_attention": n_attn * forwards,
+            "spec_accept": sum(r["scored"] for r in runs),
+            "rwkv6_scan": n_rwkv * prefills // len(lens)
+            * sum(len(rwkv_runs(T)) for T in lens)}
+    want = {k: n for k, n in want.items() if n}
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise AssertionError(f"{label} launch counts {got}: need {want} "
+                             f"({prefills} prefills, {forwards} decode "
+                             "forwards) and no other kernel")
+    log(f"{label}: launches {', '.join(f'{k}={n}' for k, n in got.items())} "
+        f"({prefills} prefills, {forwards} decode forwards over the pure "
+        f"runs, drafts and verify bursts), exactly")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the families path: the six other attention-only configs at full width
 # ---------------------------------------------------------------------------
 
@@ -4780,10 +5141,11 @@ def jamba_reuse(cfg, params, eng, tally):
         "untouched bit for bit across its 16 decode steps")
 
 
-def jamba_refusal(eng):
+def jamba_refusal(eng, tally):
     """A 100-token prompt (over 64, not a multiple of 64: outside the
     mamba scan's domain) is refused with ``ValueError`` before any slot
-    or cache row moves."""
+    or cache row moves; so is the wide verify mode on a live slot (a
+    mamba step reads one token)."""
     from repro_torch.core.tree import leaves
     from repro_torch.serving.engine import Request
     before = [a.clone() for a in leaves(eng.state.caches)]
@@ -4799,6 +5161,19 @@ def jamba_refusal(eng):
                        for a, b in zip(before, leaves(eng.state.caches))):
         raise AssertionError("jamba: the refused prompt moved state")
     log(f"jamba: a 100-token prompt refused before anything moved: {why}")
+    live = Request("jw", np.arange(37), max_new_tokens=4)
+    tally.add(eng, live)
+    slot, pos = live.slot, int(eng.state.positions[live.slot])
+    try:
+        eng.verify_slots({slot: [1, 2]})
+    except ValueError as e:
+        why = str(e)
+    else:
+        raise AssertionError("jamba: the wide verify mode ran")
+    if int(eng.state.positions[slot]) != pos:
+        raise AssertionError("jamba: the refused wide verify moved state")
+    eng.retire(slot)
+    log(f"jamba: the wide verify mode refused before anything moved: {why}")
 
 
 def run_jamba() -> dict:
@@ -4814,7 +5189,10 @@ def run_jamba() -> dict:
     a 1536-token prefill split into the mamba mixers and the rest; a
     sampled 1024-token slot's v1 hop into an engine of seed 9.  Launches
     exactly 2 flash_attention a cold prefill and 2 decode_attention a
-    decode forward (the two attention layers), and no other kernel."""
+    decode forward (the two attention layers), and no other kernel.
+    Then, on the same weights, jamba's half of the ``spec_recurrent``
+    path (``run_spec_recurrent``, its counts read apart).  Returns
+    (jamba's counts, spec_recurrent's counts, its seconds)."""
     from repro_torch.models.init import init_params
     from repro_torch.serving.engine import Engine, Request
     release()
@@ -4874,7 +5252,7 @@ def run_jamba() -> dict:
         f"prefill includes set-up); decode median {med * 1e3:.3f} ms/step "
         f"over the last {len(step_s)} steps (host clock, synchronised)")
     jamba_reuse(cfg, params, eng, tally)
-    jamba_refusal(eng)
+    jamba_refusal(eng, tally)
 
     # where the time goes: a 1536-token prefill split into the mamba
     # mixers and the rest, then four decode steps of four rows
@@ -4921,9 +5299,12 @@ def run_jamba() -> dict:
         f"{tally.steps['dense']} decode forwards, 2 of them logit probes), "
         f"no other kernel, exactly; decode step {wall:.3f} ms wall / "
         f"{busy:.3f} ms busy ({gpu_line()})")
+    t = time.perf_counter()
+    spec = run_spec_recurrent(cfg, params, (512, 1024), JAMBA_GEO)
+    spec_s = time.perf_counter() - t
     del params
     release()
-    return counts
+    return counts, spec, spec_s
 
 
 # ---------------------------------------------------------------------------
@@ -6374,6 +6755,7 @@ def main() -> int:
         out = fn(*args)
         paths[name] = out[0] if isinstance(out, tuple) else out
         wall[name] = round(time.perf_counter() - t, 1)
+        return out
 
     drive("paged", run_engine, cfg, params)
     drive("dense", run_dense, cfg, params)
@@ -6415,10 +6797,17 @@ def main() -> int:
         f"(seed {SEED}) initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s; llama-1.5b freed")
     drive("rwkv", run_rwkv, rcfg, rparams)
+    drive("spec_recurrent", run_spec_recurrent, rcfg, rparams,
+          (37, 512, 1000, 1536), dict(slots=4, max_len=2048, device="cuda"))
     del rparams
     torch.cuda.empty_cache()
     drive("families", run_families)
-    drive("jamba", run_jamba)
+    # jamba's half of spec_recurrent runs inside its path, on its weights
+    _, jspec, jspec_s = drive("jamba", run_jamba)
+    paths["spec_recurrent"] = {k: n + jspec[k]
+                               for k, n in paths["spec_recurrent"].items()}
+    wall["spec_recurrent"] = round(wall["spec_recurrent"] + jspec_s, 1)
+    wall["jamba"] = round(wall["jamba"] - jspec_s, 1)
     drive("whisper", run_whisper)
     drive("internvl", run_internvl)
     drive("train", run_train)

@@ -463,7 +463,8 @@ class FleetController:
 
         Speculative slots ARE parkable (the ROADMAP lifecycle gap):
         the pair controller first rolls the uncommitted draft tail back
-        (``Engine.rollback_slot``) and dissolves the request's replica
+        (``Engine.rollback_slot``, which restores a recurrent draft's
+        state too) and dissolves the request's replica
         slot on the verify engine, so the packed snapshot -- and the
         stream the victim later resumes from -- holds only committed
         tokens.  Plain slots win ties against speculative ones (no

@@ -44,7 +44,9 @@ Verify modes
     attention instead of the decode kernel, so greedy choices on
     knife-edge bf16 logits can deviate from a pure decode run
     (production speculative-decoding stacks share this numerics
-    property).
+    property).  Refused at construction for a verify model with
+    recurrent mixers (rwkv, mamba): their decode step reads one token,
+    so a window cannot be scored in one pass.
   * ``distribution``: the cross-model-tier mode.  A draft tier with
     *distinct weights* (an int8 or small-model quality tier) can never
     match the target token-for-token on purpose; instead the drafter
@@ -59,6 +61,16 @@ Verify modes
     Non-greedy requests may speculate in this mode (the rule is
     temperature-correct); q rows dominate the round message bytes --
     the bandwidth price of distribution-level acceptance.
+
+Recurrent models (rwkv6, jamba's mamba layers) speculate in the
+``stepwise`` and ``distribution`` modes, as draft, verify tier or both.
+Their draft slot's state is rolled back with its tokens: ``attach`` arms
+the draft slot with ``Engine.arm_rollback(slot, gamma)`` -- a rollback
+goes back at most one uncommitted tail of gamma tokens -- and every
+path that hands the request back to plain local decoding disarms it
+(the verify engine keeps its own history for a distribution burst; see
+``serving.engine``).  The JAX controller rewinds tokens only, so its
+recurrent draft keeps the rejected drafts (ROADMAP Queue 3).
 
 The port's copy of the JAX package's ``fleet.speculative``.  The
 accept/reject randomness of the distribution mode is a CPU
@@ -304,6 +316,7 @@ class SpeculativeTierController:
                     spec_pair=f"{self.draft.name}->{self.verify.name}")
         self._set_policy(self.draft.engine, req.slot,
                          self.drafter_temperature, self.drafter_top_k)
+        self.draft.engine.arm_rollback(req.slot, self.gamma)
         self._spec[req.rid] = _SpecReq(req=req, replica_slot=replica.slot)
         return "spec"
 
@@ -518,8 +531,7 @@ class SpeculativeTierController:
             self.draft.engine.rollback_slot(req.slot, pending, 0, None)
         req.output[:] = req.output[:st.committed]
         st.qrows = []
-        self._set_policy(self.draft.engine, req.slot,
-                         req.temperature, req.top_k)
+        self._to_plain(req)
         self._local.add(rid)
         self.stats.local_fallbacks += 1
 
@@ -540,11 +552,18 @@ class SpeculativeTierController:
         if pending > 0 and req.slot in self.draft.engine.requests:
             self.draft.engine.rollback_slot(req.slot, pending, 0, None)
         req.output[:] = req.output[:st.committed]
-        self._set_policy(self.draft.engine, req.slot,
-                         req.temperature, req.top_k)
+        self._to_plain(req)
         if st.replica_slot in self.verify.engine.requests:
             self.verify.engine.retire(st.replica_slot)
         return True
+
+    def _to_plain(self, req):
+        """A rolled-back draft slot decodes plainly from here: the
+        request's own sampling policy, no rollback history."""
+        if req.slot in self.draft.engine.requests:
+            self._set_policy(self.draft.engine, req.slot,
+                             req.temperature, req.top_k)
+            self.draft.engine.arm_rollback(req.slot, 0)
 
     def dissolve(self):
         """Planned pair dissolution (drain/rebalance of a tier-paired

@@ -137,7 +137,9 @@ Flags
                          output stays the target's greedy choice)
   --drafter-top-k N      draft-tier top-k (default 0 = full vocab)
   --verify-mode MODE     stepwise (bit-exact, default) | wide (one
-                         multi-query pass) | distribution (standard
+                         multi-query pass; not on rwkv6-7b or jamba,
+                         whose recurrent mixers step one token at a
+                         time) | distribution (standard
                          speculative-sampling accept/reject: required
                          when draft and verify engines are different
                          quality tiers; see fleet.speculative docs)
@@ -277,6 +279,13 @@ def main(argv=None) -> int:
                          "fleet metrics registry here")
     args = ap.parse_args(argv)
     cfg, dev = setup(ap, args)
+    recurrent = {ls.mixer for b in cfg.blocks for ls in b.layers} \
+        & {"rwkv", "mamba"}
+    if args.spec_tiers and args.verify_mode == "wide" and recurrent:
+        ap.error(f"--verify-mode wide cannot verify {cfg.name}: its "
+                 f"{'/'.join(sorted(recurrent))} mixers step one token at "
+                 "a time, so a draft window cannot be scored in one pass; "
+                 "use stepwise or distribution")
 
     import numpy as np
 

@@ -29,9 +29,30 @@ the mamba scan's too, checked before the slot is taken.
 The migration surface (``extract_slot``, ``inject_slot``,
 ``slot_like``) moves one slot's cache rows (attention KV or recurrent
 state alike), tokens, position, RNG and policy as a ``SlotSnapshot``
-(wire version 1, ``core.migration``).  On models with recurrent mixers
-the verify modes and ``rollback_slot`` are a later slice (ROADMAP
-Queue 1 item 7).  ``profile_hook`` receives the wall time of each
+(wire version 1, ``core.migration``).
+
+On models with recurrent mixers (rwkv, mamba) a rollback must also
+restore the slot's recurrent state: the state a pure decode run holds
+after consuming every committed token except ``last_token``.  Decode
+overwrites that state in place, so the engine keeps, per slot, a
+history of it: a copy of the slot's recurrent rows at each of its last
+``depth`` positions, taken just before the decode step at that position.
+The depth rule: whoever drafts on a slot arms it with
+``arm_rollback(slot, gamma)`` (the tier controller at ``attach``), since
+the furthest a draft slot rolls back is a whole uncommitted tail of at
+most gamma tokens; ``verify_slots_distribution`` keeps its own
+``len(tail) + 1`` positions for the burst (the drafts and the bonus
+row) and ends each slot at its restored state.  One position costs the
+slot's recurrent bytes (``history_bytes``; rwkv6-7b 32.5 MiB a slot).
+An unarmed slot keeps nothing and costs nothing; a rollback past what
+is kept raises ``ValueError`` before anything moves.  The history is
+local to the engine: only a slot in use is armed, ``retire`` clears it
+(so a request that ``add_request`` or ``inject_slot`` places starts with
+none), and a slot snapshot never carries it.  The wide verify mode
+is refused on these models: a recurrent decode step reads one token
+(the JAX ``rwkv6.timemix_step`` and ``mamba.mamba_step`` read ``[:,
+0]`` of a window, so the JAX wide verify scores the window as its first
+token, ROADMAP Queue 3).  ``profile_hook`` receives the wall time of each
 program's first run on an engine (the fleet's tracer reads it).  This
 module also carries the ``Request`` record, its
 wire form and the slot snapshot types, which ``serving.paged``
@@ -290,6 +311,9 @@ class Engine:
         # ``_profiled``); the fleet points it at its tracer
         self.profile_hook = profile_hook
         self._compiled: set[str] = set()
+        # slot -> its recurrent-state history (armed slots only; see the
+        # module docstring's depth rule)
+        self._history: dict[int, _History] = {}
 
     def _profiled(self, key: str, fn):
         return _run_profiled(self, key, fn)
@@ -390,6 +414,8 @@ class Engine:
         verifier rules on them."""
         if not self.requests:
             return {}
+        if self._history:
+            self._record_step()
         self.state, toks = self._profiled(
             "decode", lambda: self._decode_fn(self.params, self.state))
         return self._emit(toks, auto_retire)
@@ -402,6 +428,8 @@ class Engine:
         the draft side of distribution-level speculative acceptance."""
         if not self.requests:
             return {}, None
+        if self._history:
+            self._record_step()
         self.state, toks, probs = self._profiled(
             "decode_probs",
             lambda: self._decode_probs(self.params, self.state))
@@ -410,6 +438,7 @@ class Engine:
 
     def retire(self, slot: int):
         self.requests.pop(slot, None)
+        self._history.pop(slot, None)
         self.state.active[slot] = False
 
     # -- per-slot live migration ---------------------------------------------
@@ -502,15 +531,83 @@ class Engine:
                 and all(ls.mixer in ("attn", "local")
                         for b in self.cfg.blocks for ls in b.layers))
 
-    def _refuse_recurrent(self, what: str):
-        """The verify modes and ``rollback_slot`` rewind or teacher-force
-        positions only; a recurrent state would keep the rejected drafts
-        (the JAX ``rollback_slot`` leaves it so)."""
-        if self._recurrent:
-            raise NotImplementedError(
-                f"Engine.{what} on a model with recurrent mixers "
-                f"({self.cfg.name}) is not ported: ROADMAP Queue 1 item 7 "
-                "(recurrent-state rollback)")
+    # -- recurrent-state history (the rollback of rwkv / mamba slots) --------
+    def _recurrent_rows(self, slot: int) -> list:
+        """Views of ``slot``'s recurrent leaves (rwkv ``state``, ``x_tm``,
+        ``x_cm``; mamba ``ssm``, ``conv``), layer by layer."""
+        return [a[:, slot] for grp in self.state.caches for layer in grp
+                for kind in ("rwkv", "mamba")
+                for a in layer.get(kind, {}).values()]
+
+    def arm_rollback(self, slot: int, depth: int):
+        """Keep ``slot``'s recurrent state at each of its next positions,
+        up to the last ``depth`` of them, so that ``rollback_slot`` can
+        go back ``depth`` positions; ``depth=0`` disarms and frees what
+        was kept.  Re-arming keeps the entries that still fit.  A no-op
+        on an attention-only model, whose rollback needs no history."""
+        if not self._recurrent:
+            return
+        if slot not in self.requests:
+            raise ValueError(f"slot {slot} not in use")
+        if depth <= 0:
+            self._history.pop(slot, None)
+            return
+        self._history.setdefault(slot, _History()).trim(depth)
+
+    def history_bytes(self) -> int:
+        """Device bytes the armed slots' histories hold."""
+        return sum(a.nbytes for h in self._history.values()
+                   for kept in h.entries.values() for a in kept)
+
+    def _record_step(self):
+        """Before a decode step of every slot in use: record each armed
+        slot's recurrent state at its position."""
+        pos = self.state.positions.tolist()
+        self._record_history({slot: pos[slot] for slot in self._history
+                              if slot in self.requests})
+
+    def _record_history(self, positions: dict[int, int]):
+        """Copy each armed slot's recurrent rows as its entry at
+        ``positions[slot]``, reusing the oldest entry's buffers once the
+        slot holds ``depth`` of them."""
+        for slot, pos in positions.items():
+            h = self._history.get(slot)
+            if h is None:
+                continue
+            rows = self._recurrent_rows(slot)
+            if len(h.entries) >= h.depth:
+                kept = h.entries.pop(next(iter(h.entries)))
+                for buf, row in zip(kept, rows):
+                    buf.copy_(row)
+            else:
+                kept = [row.clone() for row in rows]
+            h.entries[pos] = kept
+
+    def _restore_recurrent(self, slot: int, pos: int, new_pos: int):
+        """Put back ``slot``'s recurrent state at ``new_pos`` (it stands
+        at ``pos``), or raise ``ValueError`` before anything moves."""
+        if new_pos == pos:                  # the state already consumed
+            return                          # exactly the kept inputs
+        if new_pos > pos:
+            raise ValueError(
+                f"slot {slot} of {self.cfg.name} (recurrent mixers) stands "
+                f"at position {pos}: committing a token at {new_pos - 1} "
+                "needs a state that consumed the one before it, which no "
+                "step has fed")
+        h = self._history.get(slot)
+        kept = h.entries.get(new_pos) if h is not None else None
+        if kept is None:
+            oldest = min(h.entries) if h is not None and h.entries else pos
+            raise ValueError(
+                f"slot {slot} of {self.cfg.name} (recurrent mixers) stands "
+                f"at position {pos} and keeps its recurrent state back to "
+                f"position {oldest} ({pos - oldest} positions); it cannot "
+                f"roll back to {new_pos} (arm_rollback(slot, depth) sets "
+                "how far a slot can go back)")
+        for row, buf in zip(self._recurrent_rows(slot), kept):
+            row.copy_(buf)
+        for p in [p for p in h.entries if p >= new_pos]:
+            del h.entries[p]
 
     def verify_slots(self, drafts: dict[int, list[int]], *,
                      width: int | None = None) -> dict[int, tuple[int, int]]:
@@ -525,8 +622,18 @@ class Engine:
         so greedy choices on knife-edge logits can deviate from a pure
         decode run of this engine; ``verify_slots_stepwise`` is the
         bit-exact mode.  Slot state advances to the committed prefix.
-        Returns {slot: (n_accepted, correction_token | None)}."""
-        self._refuse_recurrent("verify_slots")
+        Returns {slot: (n_accepted, correction_token | None)}.
+
+        Raises ``ValueError`` on a model with recurrent mixers: their
+        decode step reads one token, so the window cannot be scored in
+        one pass (the JAX engine scores it as its first token)."""
+        if self._recurrent:
+            raise ValueError(
+                f"Engine.verify_slots (wide) on {self.cfg.name}: recurrent "
+                "mixers step one token at a time, so a multi-token window "
+                "cannot be scored in one forward (the JAX timemix_step / "
+                "mamba_step read only its first token); use "
+                "verify_slots_stepwise or verify_slots_distribution")
         assert drafts, "nothing to verify"
         g = width if width is not None else max(map(len, drafts.values()))
         B = self.slots
@@ -560,8 +667,8 @@ class Engine:
         program over each drafted tail, so the greedy token each burst
         step emits *is* the pure-run token.  Slots that finish (first
         rejection, or tail exhausted) are deactivated for the rest of
-        the burst.  Same return contract as ``verify_slots``."""
-        self._refuse_recurrent("verify_slots_stepwise")
+        the burst, so a recurrent slot ends at a pure run's state.  Same
+        return contract as ``verify_slots``."""
         assert drafts, "nothing to verify"
         saved_active = self.state.active.clone()
         burst = torch.zeros((self.slots,), dtype=torch.bool)
@@ -606,9 +713,10 @@ class Engine:
         slot.  Scoring teacher-forces the drafts through the probs
         program, then the slot rewinds to its committed prefix.  A
         fully-accepted window commits only the drafts (no bonus token:
-        the KV-gap rule of ``_verify_window``).  Returns {slot:
+        the KV-gap rule of ``_verify_window``).  On a recurrent model each
+        slot keeps ``len(tail) + 1`` positions of history for the burst,
+        so the rewind restores its state too.  Returns {slot:
         (n_accepted, commit_token | None)}."""
-        self._refuse_recurrent("verify_slots_distribution")
         assert drafts, "nothing to verify"
         saved_active = self.state.active.clone()
         positions = self.state.positions.cpu().numpy()
@@ -620,11 +728,21 @@ class Engine:
             assert int(positions[slot]) + len(toks) + 1 <= self.max_len, \
                 f"scoring window overruns max_len at slot {slot}"
             burst[slot] = True
+        pos0 = {slot: int(positions[slot]) for slot in drafts}
+        depths = {}                     # slot -> its depth before the burst
+        if self._recurrent:
+            for slot, toks in drafts.items():
+                h = self._history.setdefault(slot, _History())
+                depths[slot] = h.depth
+                h.depth = max(h.depth, len(toks) + 1)
         self.state.active = burst.to(self.device) & saved_active
         p_rows: dict[int, list] = {slot: [] for slot in drafts}
         live = dict(drafts)
         step = 0
         while live:
+            if depths:
+                self._record_history({slot: pos0[slot] + step
+                                      for slot in live})
             self.state, _, probs = self._decode_probs(self.params,
                                                       self.state)
             for slot in list(live):
@@ -656,6 +774,11 @@ class Engine:
             else:
                 self.rollback_slot(slot, len(tail) + 1, n_acc, int(nxt))
                 results[slot] = (n_acc, int(nxt))
+        for slot, depth in depths.items():      # back to the armed depth
+            if depth:
+                self._history[slot].trim(depth)
+            else:
+                del self._history[slot]
         return results
 
     def _force_slot_token(self, slot: int, token: int):
@@ -674,17 +797,26 @@ class Engine:
         next committed token; ``commit_token=None`` drops the whole tail.
         Cache rows the dropped suffix wrote stay behind but are invisible
         -- their ``abs_pos`` exceeds the rewound position -- and decode
-        rewrites each row in place before it becomes attendable again."""
-        self._refuse_recurrent("rollback_slot")
+        rewrites each row in place before it becomes attendable again.
+        A recurrent slot's state is put back to its entry at the new
+        position (``arm_rollback``): the state a pure run holds there.
+        A rollback past what the slot keeps, or one that would commit a
+        token whose input the state never consumed, raises
+        ``ValueError`` before anything moves."""
         s = self.state
-        p0 = int(s.positions[slot]) - drafted
+        pos = int(s.positions[slot])
+        p0 = pos - drafted
         assert p0 >= 0, (slot, drafted)
         if commit_token is None:
             new_pos = p0
-            s.last_token[slot] = s.tokens[slot, max(p0 - 1, 0)]
         else:
             assert 0 <= accepted <= drafted
             new_pos = p0 + accepted + 1
+        if self._recurrent:
+            self._restore_recurrent(slot, pos, new_pos)
+        if commit_token is None:
+            s.last_token[slot] = s.tokens[slot, max(p0 - 1, 0)]
+        else:
             s.tokens[slot, new_pos - 1] = commit_token
             s.last_token[slot] = commit_token
         s.positions[slot] = new_pos
@@ -708,6 +840,19 @@ class Engine:
             if self.requests:
                 self.step()
         return outputs
+
+
+@dataclass
+class _History:
+    """One armed slot's recurrent rows by position, oldest first, at
+    most ``depth`` entries."""
+    depth: int = 0
+    entries: dict = field(default_factory=dict)   # position -> [tensor]
+
+    def trim(self, depth: int):
+        self.depth = depth
+        while len(self.entries) > depth:
+            del self.entries[next(iter(self.entries))]
 
 
 # ---------------------------------------------------------------------------

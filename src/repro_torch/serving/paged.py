@@ -28,8 +28,9 @@ size, occupancy and seed as long as the page size and the program
 geometry match (the page-level contract).  Wire version 3
 (``suffix_only=True``) ships the shared chain as its hashes and only the
 private pages; the destination re-references its own cached copies.
-The speculative surface (``rollback_slot``, ``_force_slot_token``,
-``add_request(committed=)``) follows the dense engine's.
+The speculative surface (``rollback_slot``, ``arm_rollback``,
+``_force_slot_token``, ``add_request(committed=)``) follows the dense
+engine's.
 """
 
 from __future__ import annotations
@@ -745,6 +746,9 @@ class PagedEngine:
         s = self.state
         s.tokens[slot, (s.positions[slot] - 1).long()] = token
         s.last_token[slot] = token
+
+    def arm_rollback(self, slot: int, depth: int):
+        """The dense engine's surface; attention rows need no history."""
 
     def rollback_slot(self, slot: int, drafted: int, accepted: int,
                       commit_token: int | None = None):

@@ -511,11 +511,23 @@ def _speculative_stream(S, verify_mode):
     return rec, stats
 
 
-@pytest.mark.parametrize("verify_mode", ["stepwise", "distribution"])
-def test_speculative_stream_matches_jax(verify_mode):
+@pytest.mark.parametrize("arch,verify_mode", [
+    pytest.param("llama-1.5b", "stepwise", id="stepwise"),
+    pytest.param("llama-1.5b", "distribution", id="distribution"),
+    pytest.param("rwkv6-7b", "stepwise", id="rwkv6-7b-stepwise")])
+def test_speculative_stream_matches_jax(arch, verify_mode):
+    """On tiny rwkv6-7b only the committed streams are compared: the JAX
+    draft's rollback leaves the rejected drafts in its recurrent state
+    (ROADMAP Queue 3), so its proposals may differ from the port's."""
     (jrec, jst), (trec, tst) = (_speculative_stream(
-        fleet_side(side, "float32"), verify_mode)
+        fleet_side(side, "float32", arch), verify_mode)
         for side in ("jax", "torch"))
+    if arch != "llama-1.5b":
+        for rec in (jrec, trec):
+            rec["outputs"].pop("r3")
+        assert trec["outputs"] == jrec["outputs"]
+        assert all(s[-1] == "done" for s in trec["states"].values())
+        return
     for rec in (jrec, trec):
         # the sampled request draws on each package's own RNG: its tokens
         # (and, where it speculates, its verdicts) match in distribution

@@ -360,18 +360,16 @@ def test_reused_slot_is_zeroed_before_its_prefill_and_idle_rows_kept(
 
 
 def test_recurrent_verify_and_rollback_are_refused():
+    """The wide verify mode raises ``ValueError`` on the dense engine
+    (the stepwise and distribution modes and ``rollback_slot`` run:
+    tests/test_torch_spec_recurrent.py), and ``PagedEngine`` refuses the
+    hybrid model at construction."""
     _, teng = engines(slots=3)
     assert teng._recurrent and not teng.supports_wide_verify
     r = Request("r", PROMPTS[0], max_new_tokens=4)
     assert teng.add_request(r)
-    q = np.eye(pair()[1].padded_vocab, dtype=np.float32)[[1]]
-    for call in (lambda: teng.rollback_slot(r.slot, 1, 0, None),
-                 lambda: teng.verify_slots({r.slot: [1]}),
-                 lambda: teng.verify_slots_stepwise({r.slot: [1]}),
-                 lambda: teng.verify_slots_distribution(
-                     {r.slot: [1]}, {r.slot: q}, rng=torch.Generator())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            call()
+    with pytest.raises(ValueError, match="one token at a time"):
+        teng.verify_slots({r.slot: [1]})
     teng.step()
     assert len(r.output) == 1
     with pytest.raises(ValueError, match="attention-only"):
@@ -630,8 +628,8 @@ def test_fleet_decisions_and_tokens_match_jax():
 
 def test_speculative_pair_with_a_jamba_target_is_refused():
     """The wide verify mode is refused at construction (recurrent
-    mixers); stepwise and distribution verification by the engine, as on
-    rwkv (ROADMAP Queue 1 item 7)."""
+    mixers); a stepwise pair verifies on the jamba engine
+    (tests/test_torch_spec_recurrent.py runs both modes to the end)."""
     from repro_torch.core.channel import Fabric
     from repro_torch.core.daemon import CLOUD, EDGE
     from repro_torch.fleet import EngineHandle, SpeculativeTierController
@@ -644,10 +642,12 @@ def test_speculative_pair_with_a_jamba_target_is_refused():
         SpeculativeTierController(draft, verify, fabric=Fabric(),
                                   whitelist=set(), measurement="m",
                                   verify_mode="wide")
+    SpeculativeTierController(draft, verify, fabric=Fabric(),
+                              whitelist=set(), measurement="m")
     r = Request("r", PROMPTS[0], max_new_tokens=4)
     assert verify.engine.add_request(r)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        verify.engine.verify_slots_stepwise({r.slot: [3]})
+    n, corr = verify.engine.verify_slots_stepwise({r.slot: [3]})[r.slot]
+    assert (n, corr) == (1, None) or (n == 0 and corr != 3)
 
 
 # -- attestation, the daemon and the CLIs -------------------------------------

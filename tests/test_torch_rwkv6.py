@@ -391,21 +391,18 @@ def test_reused_slot_starts_from_the_zero_state():
 
 
 def test_recurrent_verify_and_rollback_raise_and_long_prompts_admit():
-    jeng, teng = engines(slots=1, max_len=1024)
+    """The wide verify mode raises ``ValueError`` (a recurrent decode
+    step reads one token) before anything moves; the stepwise and
+    distribution modes and ``rollback_slot`` run
+    (tests/test_torch_spec_recurrent.py).  The attention prompt-length
+    domain does not apply: 1000 tokens admit."""
+    _, teng = engines(slots=1, max_len=1024)
     assert not teng.supports_wide_verify
-    q = np.eye(tget("rwkv6-7b").replace(vocab_size=512,
-                                        vocab_pad_multiple=16).padded_vocab,
-               dtype=np.float32)[[1]]
-    # the attention prompt-length domain does not apply: 1000 tokens admit
     r = Request("long", np.arange(1000) % 500, max_new_tokens=4)
     assert teng.add_request(r)
-    for call in (lambda: teng.rollback_slot(0, 1, 0, None),
-                 lambda: teng.verify_slots({0: [1]}),
-                 lambda: teng.verify_slots_stepwise({0: [1]}),
-                 lambda: teng.verify_slots_distribution(
-                     {0: [1]}, {0: q}, rng=torch.Generator())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            call()
+    with pytest.raises(ValueError, match="one token at a time"):
+        teng.verify_slots({0: [1]})
+    assert int(teng.state.positions[0]) == 1000
     teng.step()
     assert len(r.output) == 1
 

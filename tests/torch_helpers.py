@@ -15,14 +15,15 @@ def to_numpy(tree):
     return jax.tree.map(one, tree)
 
 
-def configs(dtype="bfloat16"):
-    """The tiny llama-1.5b of both packages: (jax cfg, torch cfg)."""
+def configs(dtype="bfloat16", arch="llama-1.5b"):
+    """The tiny ``arch`` (llama-1.5b by default) of both packages: (jax
+    cfg, torch cfg)."""
     from repro.configs import get as jget
     from repro.configs.tiny import make_tiny as jtiny
     from repro_torch.configs import get as tget
     from repro_torch.configs.tiny import make_tiny as ttiny
-    return (jtiny(jget("llama-1.5b")).replace(dtype=dtype),
-            ttiny(tget("llama-1.5b")).replace(dtype=dtype))
+    return (jtiny(jget(arch)).replace(dtype=dtype),
+            ttiny(tget(arch)).replace(dtype=dtype))
 
 
 def bridged_params(jcfg, seed=0):
@@ -102,18 +103,18 @@ def jax_int8_round_trip(jparams):
 _FLEET_WEIGHTS = {}
 
 
-def fleet_weights(dtype="bfloat16"):
-    """The fleet tests' three tiers on both packages: the tiny llama's
-    seed-0 weights (``full``), their int8 round trip (``lite``, by each
-    package's own quantizer) and a half-depth config from seed 9
-    (``mini``).  Returns ``{side: {tier: (cfg, params)}}`` with side
-    ``"jax"`` or ``"torch"``; the torch ``full`` and ``mini`` params are
-    the JAX ones bridged."""
-    if dtype in _FLEET_WEIGHTS:
-        return _FLEET_WEIGHTS[dtype]
+def fleet_weights(dtype="bfloat16", arch="llama-1.5b"):
+    """The fleet tests' three tiers on both packages: the tiny ``arch``'s
+    (llama's by default) seed-0 weights (``full``), their int8 round trip
+    (``lite``, by each package's own quantizer) and a half-depth config
+    from seed 9 (``mini``).  Returns ``{side: {tier: (cfg, params)}}``
+    with side ``"jax"`` or ``"torch"``; the torch ``full`` and ``mini``
+    params are the JAX ones bridged."""
+    if (dtype, arch) in _FLEET_WEIGHTS:
+        return _FLEET_WEIGHTS[dtype, arch]
     from repro.models.init import init_params
     from repro_torch.models.init import params_from_numpy
-    jcfg, tcfg = configs(dtype)
+    jcfg, tcfg = configs(dtype, arch)
     half = max(len(jcfg.blocks) // 2, 1)
     jsm = jcfg.replace(name=jcfg.name + "-sm", blocks=jcfg.blocks[:half])
     tsm = tcfg.replace(name=tcfg.name + "-sm", blocks=tcfg.blocks[:half])
@@ -130,17 +131,17 @@ def fleet_weights(dtype="bfloat16"):
            "torch": {"full": (tcfg, tfull),
                      "lite": (tcfg, int8_round_trip(tfull)),
                      "mini": (tsm, bridge(jmini))}}
-    _FLEET_WEIGHTS[dtype] = out
+    _FLEET_WEIGHTS[dtype, arch] = out
     return out
 
 
-def fleet_side(side: str, dtype="bfloat16"):
+def fleet_side(side: str, dtype="bfloat16", arch="llama-1.5b"):
     """One package's fleet surface as a namespace, so one scenario runs
     on both: ``side`` is ``"jax"`` (``repro``) or ``"torch"``
     (``repro_torch``).  Device profiles are the JAX package's constants
     on both sides (the port's own ``CLOUD`` is the H100's, so parity
     tests hand both the same explicit profiles); ``engine`` and
-    ``paged`` build CPU engines of a tier."""
+    ``paged`` build CPU engines of a tier of ``arch``."""
     import dataclasses
     import importlib
     from types import SimpleNamespace
@@ -151,7 +152,7 @@ def fleet_side(side: str, dtype="bfloat16"):
     fleet, daemon = mod("fleet"), mod("core.daemon")
     channel, engine, paged = (mod("core.channel"), mod("serving.engine"),
                               mod("serving.paged"))
-    weights = fleet_weights(dtype)[side]
+    weights = fleet_weights(dtype, arch)[side]
     dev = {} if side == "jax" else {"device": "cpu"}
     prof = {n: daemon.DeviceProfile(**dataclasses.asdict(
         getattr(jdaemon, n))) for n in ("CLOUD", "EDGE", "MCU")}
