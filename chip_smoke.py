@@ -1287,10 +1287,12 @@ def _spec_case(kind, g, V, gen):
 
 
 def check_spec(sv, gen) -> dict:
-    """spec_accept against its plain version at V = 32768 and 262144
-    (gemma3_4b's vocab): n exactly, dist within 1e-6 abs; draft ids out
-    of [0, V) rejected where they stand; bit-equal on a second call.  The
-    tier's shape, g = 4, timed by events at both V, random drafts (n = 0)
+    """spec_accept against its plain version at V = 32768, 65536 (the
+    padded vocab of rwkv6-7b and jamba, which spec_recurrent runs: two
+    float4 quads a thread, a layout of its own) and 262144 (gemma3_4b's vocab): n exactly, dist
+    within 1e-6 abs; draft ids out of [0, V) rejected where they stand;
+    bit-equal on a second call.  The tier's shape, g = 4, timed by events
+    at every V, random drafts (n = 0)
     and greedy ones (n = 2), beside the bound and the back-to-back launch
     floor (an empty kernel timed the same way), with the profiler's
     device time of the V = 32768 row."""
@@ -1304,7 +1306,8 @@ def check_spec(sv, gen) -> dict:
     # phases after it draw the same inputs whatever is added here
     own = torch.Generator("cuda").manual_seed(SEED)
     worst = 0.0
-    for V, gs, g_ in ((32768, (1, 4, 8), gen), (262144, (4,), own)):
+    for V, gs, g_ in ((32768, (1, 4, 8), gen), (65536, (1, 4, 8), own),
+                      (262144, (4,), own)):
         for g in gs:
             for kind in ("random", "greedy", "q0"):
                 d, q, p, u = _spec_case(kind, g, V, g_)
@@ -1321,7 +1324,7 @@ def check_spec(sv, gen) -> dict:
                     f"{int(n_ref)}), dist max_abs_err={err:.3e} (tol "
                     f"{SPEC_TOL})")
     timed = {(32768, "random"): _spec_case("random", 4, 32768, gen)}
-    for V in (32768, 262144):
+    for V in (32768, 65536, 262144):
         # one-hot drafts, all accepted but for an id out of [0, V) at 2
         # (p_2 = q_2: the residual is 0 and dist is p_2)
         d = torch.randint(0, V, (4,), generator=own, device="cuda")
@@ -1369,7 +1372,7 @@ def check_spec(sv, gen) -> dict:
             f"{sv.split(V)}; bit-equal on a second call")
     log(f"spec_accept timed g=4 V=32768 random: plain {plain_ms:.4f} ms, "
         f"profiler device time per call {dev:.4f} ms {names}")
-    extra = {f"{'v262144' if V == 262144 else 'v32768'}_{kind}": dict(
+    extra = {f"v{V}_{kind}": dict(
         n=t["n"], ms=t["ms"], bound_ms=t["bound_ms"])
         for (V, kind), t in timed.items() if (V, kind) != (32768, "random")}
     return dict(name="spec_accept", route="cuda",

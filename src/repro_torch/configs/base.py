@@ -108,6 +108,13 @@ class ModelConfig:
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
+    @property
+    def recurrent_mixers(self) -> frozenset[str]:
+        """The mixer kinds here that carry a recurrent state (rwkv,
+        mamba): their decode step reads one token at a time."""
+        return frozenset(ls.mixer for b in self.blocks
+                         for ls in b.layers) & {"rwkv", "mamba"}
+
     def layer_specs(self) -> list[LayerSpec]:
         out = []
         for b in self.blocks:

@@ -279,8 +279,7 @@ def main(argv=None) -> int:
                          "fleet metrics registry here")
     args = ap.parse_args(argv)
     cfg, dev = setup(ap, args)
-    recurrent = {ls.mixer for b in cfg.blocks for ls in b.layers} \
-        & {"rwkv", "mamba"}
+    recurrent = cfg.recurrent_mixers
     if args.spec_tiers and args.verify_mode == "wide" and recurrent:
         ap.error(f"--verify-mode wide cannot verify {cfg.name}: its "
                  f"{'/'.join(sorted(recurrent))} mixers step one token at "

@@ -286,8 +286,7 @@ class Engine:
                              f"on {self.device}")
         self.cfg = cfg
         self.params = params
-        mixers = {ls.mixer for b in cfg.blocks for ls in b.layers}
-        self._recurrent = bool(mixers & {"rwkv", "mamba"})
+        self._recurrent = bool(cfg.recurrent_mixers)
         self.slots = slots
         self.max_len = max_len
         self.requests: dict[int, Request] = {}

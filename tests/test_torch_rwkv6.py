@@ -62,7 +62,9 @@ def pair(dtype="float32", seed=0):
     if key not in _PAIRS:
         jcfg = jtiny(jget("rwkv6-7b")).replace(dtype=dtype)
         tcfg = ttiny(tget("rwkv6-7b")).replace(dtype=dtype)
-        jp = jinit(jcfg, jax.random.key(seed))
+        # compiled whole: the eager init's values, without compiling
+        # its ops one by one
+        jp = jax.jit(jinit, static_argnums=0)(jcfg, jax.random.key(seed))
         rng = np.random.default_rng(seed)
         for grp in jp["blocks"]:
             for layer in grp:

@@ -17,6 +17,8 @@ its wide verify scores a window as its first token.  Engines compared
 with JAX use one slot (never 2, the tiny repeat count: the JAX
 ``_bcast`` mask-back)."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -215,14 +217,21 @@ def test_distribution_verify_ends_at_a_pure_runs_state(name, cut):
     assert_pure_at(name, eng, PLEN + n)
 
 
+_JAX_DECODE = {}
+
+
 def next_logits(eng, side, name):
-    """Slot 0's next decode logits from a copy of ``eng``'s caches."""
+    """Slot 0's next decode logits from a copy of ``eng``'s caches (on
+    the JAX side through one compiled decode forward a model)."""
     jcfg, tcfg, jp, tp = MODELS[name]()
     s = eng.state
     if side == "jax":
-        lg, _, _ = jforward(jp, {"tokens": s.last_token[:, None]}, cfg=jcfg,
-                            mode="decode", caches=s.caches,
-                            positions=s.positions[:, None])
+        if name not in _JAX_DECODE:
+            _JAX_DECODE[name] = jax.jit(functools.partial(
+                jforward, cfg=jcfg, mode="decode"))
+        lg, _, _ = _JAX_DECODE[name](jp, {"tokens": s.last_token[:, None]},
+                                     caches=s.caches,
+                                     positions=s.positions[:, None])
     else:
         caches = [[{k: {n: a.clone() for n, a in c.items()}
                     for k, c in layer.items()} for layer in grp]
@@ -283,6 +292,16 @@ def test_jax_wide_verify_scores_the_window_as_its_first_token(name):
     with pytest.raises(ValueError, match="one token at a time"):
         teng.verify_slots({0: tail}, width=GAMMA)
     assert int(teng.state.positions[0]) == PLEN
+
+
+@pytest.mark.parametrize("name,want", [
+    ("rwkv6-7b", {"rwkv"}), ("jamba-v0.1-52b", {"mamba"}),
+    ("llama-1.5b", set())])
+def test_recurrent_mixers_name_what_refuses_the_wide_mode(name, want):
+    """The one rule the engine and the fleet CLI read, at full size and
+    tiny."""
+    assert get(name).recurrent_mixers == want
+    assert make_tiny(get(name)).recurrent_mixers == want
 
 
 @pytest.mark.parametrize("name", list(MODELS))

@@ -103,34 +103,47 @@ def jax_int8_round_trip(jparams):
 _FLEET_WEIGHTS = {}
 
 
+class _Tiers(dict):
+    """``{tier: (cfg, params)}`` whose entries are built on first use."""
+
+    def __init__(self, make):
+        super().__init__()
+        self._make = make
+
+    def __missing__(self, tier):
+        self[tier] = self._make[tier]()
+        return self[tier]
+
+
 def fleet_weights(dtype="bfloat16", arch="llama-1.5b"):
     """The fleet tests' three tiers on both packages: the tiny ``arch``'s
     (llama's by default) seed-0 weights (``full``), their int8 round trip
     (``lite``, by each package's own quantizer) and a half-depth config
     from seed 9 (``mini``).  Returns ``{side: {tier: (cfg, params)}}``
     with side ``"jax"`` or ``"torch"``; the torch ``full`` and ``mini``
-    params are the JAX ones bridged."""
+    params are the JAX ones bridged.  A tier is built when it is first
+    read: most tests run the full tier only."""
     if (dtype, arch) in _FLEET_WEIGHTS:
         return _FLEET_WEIGHTS[dtype, arch]
     from repro.models.init import init_params
     from repro_torch.models.init import params_from_numpy
+    from repro_torch.optim.compression import int8_round_trip
     jcfg, tcfg = configs(dtype, arch)
     half = max(len(jcfg.blocks) // 2, 1)
     jsm = jcfg.replace(name=jcfg.name + "-sm", blocks=jcfg.blocks[:half])
     tsm = tcfg.replace(name=tcfg.name + "-sm", blocks=tcfg.blocks[:half])
-    jfull = init_params(jcfg, jax.random.key(0))
-    from repro_torch.optim.compression import int8_round_trip
-    jlite = jax_int8_round_trip(jfull)
-    jmini = init_params(jsm, jax.random.key(9))
     bridge = lambda p: params_from_numpy(to_numpy(p), device="cpu")  # noqa
-    tfull = bridge(jfull)
+    jx = _Tiers({
+        "full": lambda: (jcfg, init_params(jcfg, jax.random.key(0))),
+        "lite": lambda: (jcfg, jax_int8_round_trip(jx["full"][1])),
+        "mini": lambda: (jsm, init_params(jsm, jax.random.key(9)))})
     # each package's own quantizer: bit-equal leaf for leaf
     # (tests/test_torch_fleet_autoscale.py holds them so)
-    out = {"jax": {"full": (jcfg, jfull), "lite": (jcfg, jlite),
-                   "mini": (jsm, jmini)},
-           "torch": {"full": (tcfg, tfull),
-                     "lite": (tcfg, int8_round_trip(tfull)),
-                     "mini": (tsm, bridge(jmini))}}
+    tx = _Tiers({
+        "full": lambda: (tcfg, bridge(jx["full"][1])),
+        "lite": lambda: (tcfg, int8_round_trip(tx["full"][1])),
+        "mini": lambda: (tsm, bridge(jx["mini"][1]))})
+    out = {"jax": jx, "torch": tx}
     _FLEET_WEIGHTS[dtype, arch] = out
     return out
 
